@@ -15,6 +15,12 @@ Phases:
            the port's CLI (`-p hello -n 32 --temp 0`), then the same prompt
            with the fused attention kernel off (flash decode instead): first
            decode-step logits compared, stream agreement and tokens/s.
+  serve    the same 7B GGUF behind the port's HTTP server, in-process, over
+           four engine configurations (contiguous slots or pages, bf16 or
+           Q8_0 KV rows): four concurrent chat and completion requests each,
+           two sharing a system prompt; then, on each engine, an idle slot's
+           rows across a batched decode step and the first decode-step
+           logits against LlamaContext's.
   q8       a TinyLlama-1.1B-geometry Q8_0 GGUF through the CLI.
 
 Every kernel's launch count is set to 0 just before the path that uses it
@@ -42,7 +48,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "small", "main", "q8")
+PHASES = ("build", "kernels", "small", "main", "serve", "q8")
 
 
 def fail(msg: str) -> None:
@@ -60,7 +66,8 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     kernels it runs (torch.profiler), cycling over arg_sets (enough copies to
     exceed L2 where the caller streams weights once). CUDA events around the
     loop would time the host instead: at decode sizes the host issues a call
-    more slowly than the card runs it."""
+    more slowly than the card runs it; they are the fallback, an upper bound,
+    when the profiler returns no CUDA events three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -68,15 +75,26 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     for a in arg_sets[:3]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    if dev_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return dev_us / 1e3 / iters
+    for _ in range(3):  # the profiler now and then returns no CUDA events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        if dev_us > 0:
+            return dev_us / 1e3 / iters
+    # CUDA events around the loop: an upper bound (host issue time included)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    print(f"  (torch.profiler recorded no device time three times: CUDA events, {ms:.4f} ms, "
+          "an upper bound)")
+    return ms
 
 
 def n_copies(nbytes: int) -> int:
@@ -257,6 +275,157 @@ def check_flash_decode(records):
                                    bound_by=by)
 
 
+VARIANT_LENGTHS = (1, 37, 200, 511)  # ragged, one row to a full 512-row slot
+VARIANT_STARTS = (0, 0, 100, 50)  # the SWA case
+
+
+def _paged_tables(lengths, ps: int, s: int, gen):
+    """Block tables [B, s/ps] over shuffled page ids: slot 3 shares slot 2's
+    full first pages (a shared prefix), and the entries past each length
+    hold the sentinel P. Returns (tables, P)."""
+    import torch
+
+    nb = s // ps
+    need = [-(-n // ps) for n in lengths]
+    shared = min(lengths[2], lengths[3]) // ps
+    n_pages = sum(need) - shared
+    perm = torch.randperm(n_pages, generator=gen, device="cpu").tolist()
+    tables = torch.full((len(lengths), nb), n_pages, dtype=torch.int32)
+    nxt = 0
+    for b, n in enumerate(need):
+        for blk in range(n):
+            if b == 3 and blk < shared:
+                tables[b, blk] = tables[2, blk]
+            else:
+                tables[b, blk] = perm[nxt]
+                nxt += 1
+    return tables.to("cuda"), n_pages
+
+
+def _dense_q8(k):
+    """A random f32 cache [.., S, D] → int8 rows and [.., 1, S] scales, by
+    the port's own quantizer."""
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import _q8_quant
+
+    qs, d = _q8_quant(k)
+    return qs, d.unsqueeze(-2).contiguous()
+
+
+def check_decode_variants(records):
+    """flash_decode_q8, flash_decode_paged and flash_decode_paged_q8 against
+    their plain versions at D=128, H=32 over Hkv 32 and 8, B=4 ragged slots
+    of a 512-row context; per-slot NMSE with the planted faults."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cpu_gen = torch.Generator().manual_seed(3)
+    b, h, d, s = 4, 32, 128, 512
+    sc = d ** -0.5
+    lengths = torch.tensor(VARIANT_LENGTHS, dtype=torch.int32, device="cuda")
+    swa = torch.tensor(VARIANT_STARTS, dtype=torch.int32, device="cuda")
+    worst = {n: [0.0, 0.0] for n in ("flash_decode_q8", "flash_decode_paged",
+                                     "flash_decode_paged_q8")}
+
+    def run_case(name, label, kernel, plain, args):
+        for case, starts, cap in (("full", None, 0.0), ("swa", swa, 0.0),
+                                  ("softcap", None, 30.0)):
+            got = kernel(*args, lengths, starts, scale=sc, softcap=cap)
+            want = plain(*args, lengths, starts, scale=sc, softcap=cap)
+            st = torch.zeros_like(lengths) if starts is None else starts
+            faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc, softcap=cap),
+                      "last row dropped": plain(*args, lengths - 1, starts, scale=sc,
+                                                softcap=cap)}
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            w = worst[name]
+            w[0] = max(w[0], err)
+            print(f"  {name} {label} {case}: max|kernel-plain| {err:.3e}")
+            w[1] = max(w[1], check_slots(f"{name} {label} {case}", got, want, faults,
+                                         FLASH_NMSE_TOL))
+
+    for hkv in (32, 8):
+        q = torch.randn(b, h, d, generator=gen, device="cuda")
+        k = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
+        kq, kd = _dense_q8(k)
+        vq, vd = _dense_q8(v)
+        run_case("flash_decode_q8", f"Hkv={hkv}", ka.flash_decode_q8, ka.flash_decode_q8_plain,
+                 (q, kq, kd, vq, vd))
+        for ps in (128, 16):
+            tables, n_pages = _paged_tables(VARIANT_LENGTHS, ps, s, cpu_gen)
+            kp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
+            vp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
+            label = f"Hkv={hkv} ps={ps}"
+            run_case("flash_decode_paged", label, ka.flash_decode_paged,
+                     ka.flash_decode_paged_plain,
+                     (q, kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables))
+            kpq, kpd = _dense_q8(kp)
+            vpq, vpd = _dense_q8(vp)
+            run_case("flash_decode_paged_q8", label, ka.flash_decode_paged_q8,
+                     ka.flash_decode_paged_q8_plain, (q, kpq, kpd, vpq, vpd, tables))
+
+    # time: one 7B layer (B=1, Hkv=32) at a full 512-row context, cold
+    # caches, pages of 128 rows (the server's default) in shuffled order
+    hkv, L, ps = 32, 512, 128
+    one = torch.tensor([L], dtype=torch.int32, device="cuda")
+    q8_bytes = 2 * hkv * L * (d + 4)
+    bf_bytes = 2 * hkv * L * d * 2
+    io = 2 * h * d * 4 + 4  # q in, out, the length
+    flops = 4.0 * h * L * d
+
+    def deq(qs, dd):
+        return (qs.float() * dd.transpose(-1, -2)).to(torch.bfloat16)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.to(torch.bfloat16)[:, :, None], k, v, scale=sc)
+
+    sets = {"q8": [], "paged": [], "paged_q8": []}
+    for i in range(max(n_copies(q8_bytes), n_copies(bf_bytes))):
+        q = torch.randn(1, h, d, generator=gen, device="cuda")
+        tb = torch.randperm(L // ps, generator=cpu_gen).to(torch.int32)[None].to("cuda")
+        kp = torch.randn(L // ps, hkv, ps, d, generator=gen, device="cuda")
+        vp = torch.randn(L // ps, hkv, ps, d, generator=gen, device="cuda")
+        if i < n_copies(q8_bytes):
+            k = torch.randn(1, hkv, L, d, generator=gen, device="cuda")
+            v = torch.randn(1, hkv, L, d, generator=gen, device="cuda")
+            sets["q8"].append((q, *_dense_q8(k), *_dense_q8(v)))
+            sets["paged_q8"].append((q, *_dense_q8(kp), *_dense_q8(vp), tb))
+        if i < n_copies(bf_bytes):
+            sets["paged"].append((q, kp.to(torch.bfloat16), vp.to(torch.bfloat16), tb))
+    timed = {
+        "flash_decode_q8": (
+            ka.flash_decode_q8, ka.flash_decode_q8_plain, sets["q8"], q8_bytes,
+            lambda q, kq, kd, vq, vd: sdpa(q, deq(kq, kd), deq(vq, vd)),
+            "dequant + sdpa"),
+        "flash_decode_paged": (
+            ka.flash_decode_paged, ka.flash_decode_paged_plain, sets["paged"], bf_bytes,
+            lambda q, kp, vp, tb: sdpa(q, ka._gather_pages(kp, tb), ka._gather_pages(vp, tb)),
+            "gather + sdpa"),
+        "flash_decode_paged_q8": (
+            ka.flash_decode_paged_q8, ka.flash_decode_paged_q8_plain, sets["paged_q8"],
+            q8_bytes,
+            lambda q, kq, kd, vq, vd, tb: sdpa(
+                q, deq(ka._gather_pages(kq, tb), ka._gather_pages(kd[:, :, 0], tb)[:, :, None]),
+                deq(ka._gather_pages(vq, tb), ka._gather_pages(vd[:, :, 0], tb)[:, :, None])),
+            "gather + dequant + sdpa"),
+    }
+    for name, (kernel, plain, arg_sets, nbytes, library, lib_label) in timed.items():
+        ms = time_ms(lambda *a: kernel(*a, one, scale=sc), arg_sets)
+        pms = time_ms(lambda *a: plain(*a, one, scale=sc), arg_sets)
+        lms = time_ms(library, arg_sets)
+        extra = 4 * (L // ps) if "paged" in name else 0  # the table row, int32
+        bms, by = bound_ms(nbytes + io + extra, flops)
+        print(f"  {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"{lib_label} {lms:.4f} ms, bound {bms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.0f} GB/s")
+        records[name].update(max_abs_err=worst[name][0], max_nmse=worst[name][1], ms=32 * ms,
+                             plain_ms=32 * pms, library_ms=32 * lms, bound_ms=32 * bms,
+                             bound_by=by)
+
+
 # per slot, of the output and of the written K/V rows: the plain version
 # rounds the dequantized weight to bf16 and the kernel does not, which reads
 # 7e-6 at most on the H100; a dropped row reads 1.3e-3 at least. The limit
@@ -387,33 +556,40 @@ def require(counts: dict, names: list[str], path: str) -> None:
             fail(f"{name} was not launched on the {path} path")
 
 
-def profile_chunk(ctx, token: int, steps: int = 8) -> None:
-    """Where one decode step's time goes: host wall time of an 8-step greedy
-    chunk (no profiler), and the device time of its kernels by name
-    (torch.profiler, a second chunk)."""
+def profile_steps(fn, steps: int) -> None:
+    """Where one step's time goes: host wall time of fn (which runs `steps`
+    steps and ends in a host sync; no profiler), and the device time of its
+    kernels by name (torch.profiler, a second call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    greedy = {"top_k": 1, "top_p": 1.0, "min_p": 0.0, "temp": 1.0}
-    ctx._eval_sample_chunk(token, greedy, steps)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ctx._eval_sample_chunk(token, greedy, steps)
+    fn()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctx._eval_sample_chunk(token, greedy, steps)
+        fn()
+        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if not kernels:
-        print(f"    wall {wall_ms:.3f} ms/token; device time not measured (no CUDA events)")
+        print(f"    wall {wall_ms:.3f} ms/step; device time not measured (no CUDA events)")
         return
-    print(f"    wall {wall_ms:.3f} ms/token, device kernels {dev_ms:.3f} ms/token "
+    print(f"    wall {wall_ms:.3f} ms/step, device kernels {dev_ms:.3f} ms/step "
           f"(busy {dev_ms / wall_ms:.1%}), {sum(e.count for e in kernels) / steps:.0f} "
-          "kernel launches/token; top kernels:")
+          "kernel launches/step; top kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"      {e.self_device_time_total / 1e3 / steps:.3f} ms/token "
+        print(f"      {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
               f"{e.count / steps:.0f}x  {e.key[:70]}")
+
+
+def profile_chunk(ctx, token: int, steps: int = 8) -> None:
+    """An 8-step greedy decode chunk of `ctx`, profiled (profile_steps)."""
+    greedy = {"top_k": 1, "top_p": 1.0, "min_p": 0.0, "temp": 1.0}
+    profile_steps(lambda: ctx._eval_sample_chunk(token, greedy, steps), steps)
 
 
 def phase_small() -> None:
@@ -462,24 +638,27 @@ def phase_small() -> None:
     path.unlink()
 
 
-def phase_main(records: dict) -> None:
+def write_7b(path: Path) -> None:
+    """The llama2-7B-geometry Q4_0 GGUF of random blocks that `main` and
+    `serve` share (written once, deleted at the end of the run)."""
+    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_dsp_tpu_torch.tools.synth import LLAMA2_7B, write_synth_gguf
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_synth_gguf(str(path), LLAMA2_7B, GGMLType.Q4_0, seed=0)  # full width and depth
+    print(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB, {LLAMA2_7B.n_layers} "
+          f"layers) in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_main(records: dict, path: Path, model) -> None:
     import numpy as np
     import torch
 
-    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
-    from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
     from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
-    from llama_cpp_dsp_tpu_torch.tools.synth import LLAMA2_7B, write_synth_gguf
 
-    cfg = LLAMA2_7B  # full width and depth
-    path = ROOT / "build" / "smoke" / "llama2-7b-q4_0.gguf"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    write_synth_gguf(str(path), cfg, GGMLType.Q4_0, seed=0)
-    print(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB, {cfg.n_layers} layers) "
-          f"in {time.perf_counter() - t0:.1f} s")
     argv = ["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"]
     reset_launches()
     _, err = run_cli(argv)
@@ -489,7 +668,6 @@ def phase_main(records: dict) -> None:
     records["attn_fused"]["launches"] = counts["attn_fused"]
     print(f"  main path (fused attention): {decode_tps(err):.2f} tokens/s decode")
 
-    model = load_model(str(path))
     prompt = model.tokenizer.encode("hello")
     fused = LlamaContext(model, n_ctx=512, fused_attn=True)
     unfused = LlamaContext(model, n_ctx=512, fused_attn=False)
@@ -521,8 +699,262 @@ def phase_main(records: dict) -> None:
     n_same = sum(a == b for a, b in zip(streams["fused"], streams["unfused"]))
     print(f"  decode tokens/s: fused {tps['fused']:.2f}, flash decode {tps['unfused']:.2f}; "
           f"{n_same}/{len(streams['fused'])} stream tokens agree")
-    del model
-    path.unlink()
+
+
+SERVE_CONFIGS = {  # name → (server flags, kernels its decode must launch)
+    "slots bf16": ([], ["attn_fused", "qmm_q4_0"]),
+    "slots q8_0": (["-ctk", "q8_0"], ["flash_decode_q8", "qmm_q4_0"]),
+    "paged bf16": (["--kv-layout", "paged"], ["flash_decode_paged", "qmm_q4_0"]),
+    "paged q8_0": (["--kv-layout", "paged", "-ctk", "q8_0"],
+                   ["flash_decode_paged_q8", "qmm_q4_0"]),
+}
+SERVE_N_PREDICT = 32
+LOGIT_RTOL = 2e-2
+
+
+def _post(base: str, path: str, body: dict, on_first=None) -> dict:
+    """POST a JSON body. Returns status, the parsed body (or the SSE events,
+    JSON or the literal [DONE]), seconds to the first event and in all."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json",
+                                          "Authorization": "Bearer smoke"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = {"path": path, "stream": bool(body.get("stream")), "status": r.status,
+                   "first_s": None}
+            if not out["stream"]:
+                out["body"] = json.loads(r.read())
+            else:
+                events = []
+                for raw in r:
+                    line = raw.decode().rstrip("\n")
+                    if not line:
+                        continue
+                    if not line.startswith("data: "):
+                        fail(f"{path}: SSE line {line[:80]!r} is not `data: ...`")
+                    if out["first_s"] is None:
+                        out["first_s"] = time.perf_counter() - t0
+                        if on_first is not None:
+                            on_first()
+                    data = line[len("data: "):]
+                    events.append(data if data == "[DONE]" else json.loads(data))
+                out["body"] = events
+    except urllib.error.HTTPError as e:
+        fail(f"{path} answered HTTP {e.code}: {e.read()[:300]!r}")
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def _check_reply(r: dict) -> tuple[int, str, str]:
+    """Fail unless the reply is well formed and carries tokens and a JAX
+    stop reason. Returns (tokens, stop reason, text)."""
+    body, path = r["body"], r["path"]
+    if r["status"] != 200:
+        fail(f"{path}: HTTP {r['status']}")
+    chat = path.endswith("chat/completions")
+    if chat and not r["stream"]:
+        ch = body["choices"][0]
+        n, reason, text = body["usage"]["completion_tokens"], ch["finish_reason"], \
+            ch["message"]["content"] or ""
+        ok = body["object"] == "chat.completion" and ch["message"]["role"] == "assistant"
+    elif chat:
+        ok = body[-1] == "[DONE]" and all(e["object"] == "chat.completion.chunk"
+                                          for e in body[:-1])
+        last = body[-2]
+        n, reason = last["usage"]["completion_tokens"], last["choices"][0]["finish_reason"]
+        text = "".join(e["choices"][0]["delta"].get("content", "") for e in body[:-1])
+        ok = ok and all(e["choices"][0]["finish_reason"] is None for e in body[:-2])
+    else:  # native /completion; its stream ends on the stop:true payload (JAX framing)
+        last = body if not r["stream"] else body[-1]
+        ok = last["stop"] is True and "[DONE]" not in (body if r["stream"] else [])
+        if r["stream"]:
+            ok = ok and all(e["stop"] is False for e in body[:-1])
+        n, text = last["tokens_predicted"], last["content"]
+        reason = {"limit": "length", "eos": "stop", "word": "stop"}.get(last["stop_type"])
+    if not (ok and n >= 1 and reason in ("stop", "length")):
+        fail(f"{path}{' (stream)' if r['stream'] else ''}: malformed reply, {n} tokens, "
+             f"stop reason {reason!r}")
+    return n, reason, text
+
+
+def _slot_state(cache, idx: int) -> list:
+    """Every cached row of slot idx, as stored (pages gathered)."""
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import QuantKVCache
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedKVCache, PagedQuantKVCache
+
+    if isinstance(cache, PagedQuantKVCache):
+        pools = [*cache.k_qs, *cache.v_qs, *(p[:, :, 0] for p in (*cache.k_d, *cache.v_d))]
+        return [cache._gather(p)[idx].clone() for p in pools]
+    if isinstance(cache, PagedKVCache):
+        return [cache._gather(p)[idx].clone() for p in (*cache.k, *cache.v)]
+    if isinstance(cache, QuantKVCache):
+        return [b[idx].clone() for b in (*cache.k_qs, *cache.k_d, *cache.v_qs, *cache.v_d)]
+    return [b[idx].clone() for b in (*cache.k, *cache.v)]
+
+
+def _idle_slot_and_first_logits(engine, prompts, ref_token: int, ref_logits) -> float:
+    """Prefill `prompts` into three slots through the engine, then one
+    batched decode step through `forward` at B=4 with the fourth slot idle
+    (its write offset is the capacity). Fails unless the idle slot's rows are
+    byte-identical afterwards and prompts[0]'s logits agree with
+    LlamaContext's (ref_logits, after ref_token). Returns the relative diff."""
+    import numpy as np
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.models.llama import forward
+    from llama_cpp_dsp_tpu_torch.runtime.engine import Request
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+
+    reqs = [engine.submit(Request(0, list(p), max_new_tokens=1, sampler=make_chain(temp=0)))
+            for p in prompts]
+    while not all(r.done.is_set() for r in reqs):
+        engine.step()
+    where = {}
+    for i, p in enumerate(prompts):
+        where[i] = next(s.idx for s in engine.slots if s.cache_tokens == list(p))
+    idle = next(i for i in range(engine.n_slots) if i not in where.values())
+    b = engine.n_slots
+    toks = torch.zeros(b, 1, dtype=torch.long)
+    pos = torch.zeros(b, 1, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[where[i], 0] = ref_token if i == 0 else reqs[i].result_tokens[0]
+        pos[where[i], 0] = len(p)
+    engine._ensure_pages([(where[i], len(p) + 1) for i, p in enumerate(prompts)])
+    offs = pos[:, 0].clone()
+    offs[idle] = engine.cache.capacity
+    before = _slot_state(engine.cache, idle)
+    logits = forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"), engine.cache,
+                     offs.to("cuda"))[:, 0]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(before, _slot_state(engine.cache, idle)))
+    got = logits[where[0]].float().cpu().numpy()
+    rel = float(np.abs(got - ref_logits).max() / np.abs(ref_logits).max())
+    print(f"  idle slot {idle} byte-identical after a B={b} decode step: {same}; first decode "
+          f"logits vs LlamaContext: max rel diff {rel:.3e} (tol {LOGIT_RTOL:g}); engine's own "
+          f"first token {reqs[0].result_tokens[0]} vs {ref_token}")
+    if not same:
+        fail("a batched decode step changed an idle slot's cache rows")
+    if not (rel < LOGIT_RTOL and np.isfinite(got).all()):
+        fail("first decode-step logits disagree with LlamaContext")
+    # the same step again (it rewrites the same rows), profiled
+    print(f"  B={b} decode step (three slots decoding, one idle):")
+    profile_steps(lambda: forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"),
+                                  engine.cache, offs.to("cuda"))[:, 0].float().cpu(), 1)
+    return rel
+
+
+def phase_serve(records: dict, path: Path, model) -> None:
+    """The port's server in-process over each engine configuration: four
+    concurrent requests through HTTP, two sharing a system prompt, the
+    second of those sent once the first has decoded its first token (a
+    mixed prompt+decode step; a cached prefix)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.serve.server import build, build_arg_parser
+
+    rng = np.random.default_rng(7)
+    tok = model.tokenizer
+    system = "You answer questions about the sky. " * 7  # ~250 tokens: a shared system prompt
+    chats = [{"messages": [{"role": "system", "content": system},
+                           {"role": "user", "content": q}]}
+             for q in ("Why is the sky blue?", "What makes sunsets red and orange?")]
+    prompt_20 = "Tell me a short story"
+    prompt_90 = ("The quick brown fox jumps over the lazy dog near the river bank, "
+                 "then rests a while.")
+    print(f"  prompt tokens: completions {len(tok.encode(prompt_20, add_special=True))}, "
+          f"{len(tok.encode(prompt_90, add_special=True))}; chats about "
+          f"{len(tok.encode(system, add_special=True)) + 40} each")
+    decode_prompts = [[int(t) for t in rng.integers(300, model.cfg.n_vocab, n)]
+                      for n in (20, 45, 70)]
+    ref = LlamaContext(model, n_ctx=1024)
+    pre = ref.eval_tokens(decode_prompts[0])
+    ref_token = int(pre.argmax())
+    ref_logits = ref.eval_tokens([ref_token])
+    del ref
+    texts, summary = {}, {}
+    for name, (flags, must) in SERVE_CONFIGS.items():
+        argv = ["-m", str(path), "--port", "0", "-np", "4", "-c", "1024", "--api-key", "smoke",
+                *flags]
+        args = build_arg_parser().parse_args(argv)
+        engine, _, httpd = build(args, model)
+        mixed = []  # decoding slots carried by each packed prompt+decode step
+        inner = engine._mixed_step
+        engine._mixed_step = lambda gen, inner=inner, mixed=mixed: (mixed.append(len(gen)),
+                                                                    inner(gen))[1]
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        print(f"  [{name}] server {' '.join(argv[2:])} on {base}", flush=True)
+        n = SERVE_N_PREDICT
+        jobs = [("/v1/chat/completions", {**chats[0], "max_tokens": n, "temperature": 0,
+                                          "stream": True}),
+                ("/completion", {"prompt": prompt_20, "n_predict": n, "temperature": 0}),
+                ("/completion", {"prompt": prompt_90, "n_predict": n, "temperature": 0,
+                                 "stream": True})]
+        late = ("/v1/chat/completions", {**chats[1], "max_tokens": n, "temperature": 0})
+        try:
+            reset_launches()
+            engine.start()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as ex:
+                late_future = []
+                first = lambda: late_future.append(ex.submit(_post, base, *late))  # noqa: E731
+                futures = [ex.submit(_post, base, *jobs[0], on_first=first)]
+                futures += [ex.submit(_post, base, *j) for j in jobs[1:]]
+                replies = [f.result() for f in futures]
+                replies.insert(1, late_future[0].result())
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+        finally:
+            engine.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        m = engine.metrics
+        checked = [_check_reply(r) for r in replies]
+        n_tok = sum(c[0] for c in checked)
+        ttft = []
+        for r in replies:
+            if r["stream"]:
+                ttft.append(f"{r['first_s'] * 1e3:.1f} (client, stream)")
+            else:
+                ttft.append(f"{r['body']['timings']['prompt_ms']:.1f}")
+        shapes = [(r["path"], "stream" if r["stream"] else "json", c[0], c[1])
+                  for r, c in zip(replies, checked)]
+        print(f"    replies (path, form, tokens, stop reason): {shapes}")
+        print(f"    {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.2f} tokens/s aggregate; time to "
+              f"first token ms {ttft}; metrics {m}")
+        require(counts, must, f"serve {name}")
+        print(f"    packed prompt+decode steps: {len(mixed)}, decoding slots in them {mixed}")
+        if not any(mixed):
+            fail(f"serve {name}: no mixed prompt+decode step carried a decoding slot")
+        if m["n_errors"]:
+            fail(f"serve {name}: the engine counted {m['n_errors']} errors")
+        if not m.get("prompt_tokens_cached", 0) >= 256:
+            fail(f"serve {name}: the shared system prompt was not reused from the cache")
+        for k in must:
+            if k.startswith("flash_decode"):
+                records[k]["launches"] = counts[k]
+        texts[name] = [c[2] for c in checked]
+        summary[name] = {"tokens_per_s": n_tok / wall, "ttft_ms": ttft,
+                         "cached": m["prompt_tokens_cached"], "launches": counts}
+        _idle_slot_and_first_logits(engine, decode_prompts, ref_token, ref_logits)
+        del engine
+        torch.cuda.empty_cache()
+    for name, t in texts.items():
+        same = [a == b for a, b in zip(t, texts["slots bf16"])]
+        print(f"  [{name}] replies equal to slots bf16's: {same}")
+    print(f"  serve summary: {json.dumps(summary)}")
 
 
 def phase_q8(records: dict) -> None:
@@ -553,6 +985,15 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     "attn_fused": ("llama_cpp_dsp_tpu_torch/csrc/attn_fused.cu",
                    "llama_cpp_dsp_tpu/ops/pallas/attn_fused.py:62",
                    f"per-slot nmse <= {FUSED_NMSE_TOL:g}"),
+    "flash_decode_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
+                        "llama_cpp_dsp_tpu/ops/pallas/attention.py:420",
+                        f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
+    "flash_decode_paged": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
+                           "llama_cpp_dsp_tpu/ops/pallas/attention.py:1022",
+                           f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
+    "flash_decode_paged_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
+                              "llama_cpp_dsp_tpu/ops/pallas/attention.py:1277",
+                              f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
 }
 
 
@@ -591,16 +1032,33 @@ def main(argv=None) -> int:
                                   check_qmm("q8_0", QMM_SHAPES_7B, (1, 8, 128), {}, records),
                                   check_qmm("q8_0", list(DECODE_CALLS_TINYLLAMA), (1,),
                                             DECODE_CALLS_TINYLLAMA, records),
-                                  check_flash_decode(records), check_attn_fused(records))),
+                                  check_flash_decode(records), check_attn_fused(records),
+                                  check_decode_variants(records))),
              ("small", phase_small),
-             ("main", lambda: phase_main(records)),
+             ("main", lambda: phase_main(records, big, the_7b())),
+             ("serve", lambda: phase_serve(records, big, the_7b())),
              ("q8", lambda: phase_q8(records))]
-    for name, fn in steps:
-        if name in phases:
-            t0 = time.perf_counter()
-            print(f"[{name}]", flush=True)
-            fn()
-            print(f"[{name}] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    big = ROOT / "build" / "smoke" / "llama2-7b-q4_0.gguf"
+    loaded = []
+
+    def the_7b():
+        """`main` and `serve` share one GGUF and one loaded model."""
+        if not loaded:
+            from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+
+            write_7b(big)
+            loaded.append(load_model(str(big)))
+        return loaded[0]
+
+    try:
+        for name, fn in steps:
+            if name in phases:
+                t0 = time.perf_counter()
+                print(f"[{name}]", flush=True)
+                fn()
+                print(f"[{name}] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        big.unlink(missing_ok=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (src, replaces, tol) in SOURCES.items():

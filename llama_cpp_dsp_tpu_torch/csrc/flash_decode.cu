@@ -1,23 +1,39 @@
-// flash_decode.cu — T=1 attention of q[B,H,D] f32 over a bf16 cache
-// k, v [B,Hkv,S,D], rows [start_b, length_b) of each slot; GQA groups of
-// rep = H/Hkv query heads share a kv head; optional logit softcap.
-// Output [B,H,D] f32.
+// flash_decode.cu — T=1 attention of q[B,H,D] f32 over one slot's cached
+// rows [start_b, length_b); GQA groups of rep = H/Hkv query heads share a kv
+// head; optional logit softcap. Output [B,H,D] f32. One templated split
+// kernel serves the four cache layouts:
+//   <Q8=false, PAGED=false>  bf16 k, v [B,Hkv,S,D]                  flash_decode
+//   <Q8=true,  PAGED=false>  int8 k, v [B,Hkv,S,D], f32 scales
+//                            kd, vd [B,Hkv,1,S] (one per row)        flash_decode_q8
+//   <Q8=false, PAGED=true>   bf16 pools [P,Hkv,ps,D], block tables
+//                            [B,max_blocks] int32                    flash_decode_paged
+//   <Q8=true,  PAGED=true>   int8 pools [P,Hkv,ps,D], f32 scales
+//                            [P,Hkv,1,ps], block tables              flash_decode_paged_q8
 //
-// Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel_allh
-// and ::_decode_kernel (entry flash_decode).
+// Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel and
+// ::_decode_kernel_allh (entry flash_decode), ::_decode_kernel_q8 and
+// ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_paged and
+// ::_decode_kernel_paged_allh (flash_decode_paged), ::_decode_kernel_paged_q8
+// and ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8).
 //
-// Bound on this card: the K/V bytes of the valid rows over the memory rate
-// (a few flops per byte). Design (split-S flash decoding): the TPU kernels
-// walk the sequence in order on one core; here the sequence is cut into
-// splits of `chunk` rows, and a grid over (split, kv head, slot) runs them
-// in parallel so short batches still fill the card. Inside a block four
-// warps take interleaved rows; a warp reads one 256-byte K row (4 dims per
-// lane), sums q·k with shuffles and keeps an f32 online softmax per query
-// head. The warps' states merge in shared memory into one (m, l, acc) per
-// split, and a second small kernel merges the splits by log-sum-exp. Rows
-// outside [start, length) are never read, so ragged lengths and the SWA
-// start need no masking pass. q is taken in f32 and scaled before the dot,
-// as the TPU kernel does. D = 128 only (the wrapper checks).
+// Bound on this card: the K/V bytes of the valid rows (and their scales)
+// over the memory rate; a few flops per byte. Design (split-S flash
+// decoding): the TPU kernels walk the sequence in order on one core; here
+// the sequence is cut into splits of `chunk` rows, and a grid over (split,
+// kv head, slot) runs them in parallel so short batches still fill the card.
+// Inside a block four warps take interleaved rows; a warp reads one K row (4
+// dims per lane: 8 bytes of bf16 or 4 of int8), sums q·k with shuffles and
+// keeps an f32 online softmax per query head. The warps' states merge in
+// shared memory into one (m, l, acc) per split, and a second small kernel
+// merges the splits by log-sum-exp. Rows outside [start, length) are never
+// read, so ragged lengths and the SWA start need no masking pass. q is taken
+// in f32 and scaled before the dot, as the TPU kernels do. Q8 folds the row
+// scales as the TPU kernels do, never dequantizing the cache: the score is
+// (q·kq)·kd[row], then softcap; the value term is (p·vd[row])·vq. PAGED
+// addresses row r of slot b through page tables[b, r / ps] (an entry ≥ P is
+// clamped to P-1; blocks at or past the length are never read), so a split
+// is a run of whole pages and any page size works. D = 128 only (the
+// wrapper checks).
 #include <math.h>
 
 #include "common.cuh"
@@ -27,37 +43,80 @@ namespace {
 constexpr int D = 128;
 constexpr int WARPS = 4;
 
-__global__ void __launch_bounds__(WARPS * 32)
-flash_decode_split(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                   const int* __restrict__ starts, float* __restrict__ ws_acc,
-                   float* __restrict__ ws_ml, int H, int Hkv, int S, int chunk, int n_splits,
-                   float scale, float softcap) {
+struct DecodeArgs {
+    const float* q;     // [B,H,D]
+    const void* k;      // K rows (bf16 or int8)
+    const void* v;      // V rows
+    const float* kd;    // Q8: K row scales, indexed like rows
+    const float* vd;    // Q8: V row scales
+    const int* tables;  // PAGED: [B, max_blocks]
+    const int* lengths;
+    const int* starts;  // may be null = 0
+    float* ws_acc;      // [B*H*n_splits*D]
+    float* ws_ml;       // [B*H*n_splits*2]
+    int H, Hkv;
+    int S;              // rows per slot, or the page size when PAGED
+    int max_blocks, n_pages;  // PAGED
+    int chunk, n_splits;
+    float scale, softcap;
+};
+
+// Index of row `row` of (slot b, kv head hk) in units of rows: times D for
+// the K/V element offset, and the offset of its scale as it is.
+template <bool PAGED>
+__device__ __forceinline__ size_t row_index(const DecodeArgs& a, int b, int hk, int row) {
+    if (PAGED) {
+        const int ps = a.S;
+        const int page = min(max(a.tables[(size_t)b * a.max_blocks + row / ps], 0),
+                             a.n_pages - 1);
+        return ((size_t)page * a.Hkv + hk) * ps + (row % ps);
+    }
+    return ((size_t)b * a.Hkv + hk) * a.S + row;
+}
+
+// 4 consecutive K or V elements of a row → f32
+template <bool Q8>
+__device__ __forceinline__ void load4(const void* base, size_t off, float out[4]) {
+    if (Q8) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(
+            static_cast<const int8_t*>(base) + off);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[i] = (float)(int8_t)((u >> (8 * i)) & 0xffu);
+    } else {
+        load_bf16x4(static_cast<const __nv_bfloat16*>(base) + off, out);
+    }
+}
+
+template <bool Q8, bool PAGED>
+__global__ void __launch_bounds__(WARPS * 32) decode_split(const DecodeArgs a) {
     const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int rep = H / Hkv;
-    const int len = min(lengths[b], S);
-    const int st = starts ? max(starts[b], 0) : 0;
-    const int lo = max(split * chunk, st);
-    const int hi = min((split + 1) * chunk, len);
+    const int rep = a.H / a.Hkv;
+    const int cap = PAGED ? a.max_blocks * a.S : a.S;
+    const int len = min(a.lengths[b], cap);
+    const int st = a.starts ? max(a.starts[b], 0) : 0;
+    const int lo = max(split * a.chunk, st);
+    const int hi = min((split + 1) * a.chunk, len);
 
     __shared__ float sm_m[WARPS], sm_l[WARPS];
     __shared__ float sm_acc[WARPS][D];
 
-    const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * D;
     for (int r = 0; r < rep; ++r) {
         const int head = hk * rep + r;
-        const float4 q4 = *reinterpret_cast<const float4*>(q + ((size_t)b * H + head) * D + lane * 4);
-        const float qv[4] = {q4.x * scale, q4.y * scale, q4.z * scale, q4.w * scale};
+        const float4 q4 =
+            *reinterpret_cast<const float4*>(a.q + ((size_t)b * a.H + head) * D + lane * 4);
+        const float qv[4] = {q4.x * a.scale, q4.y * a.scale, q4.z * a.scale, q4.w * a.scale};
         float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
         for (int row = lo + warp; row < hi; row += WARPS) {
+            const size_t idx = row_index<PAGED>(a, b, hk, row);
             float kf[4], vf[4];
-            load_bf16x4(k + kv_base + (size_t)row * D + lane * 4, kf);
-            load_bf16x4(v + kv_base + (size_t)row * D + lane * 4, vf);
+            load4<Q8>(a.k, idx * D + lane * 4, kf);
+            load4<Q8>(a.v, idx * D + lane * 4, vf);
             float s = qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3];
             s = warp_sum(s);
-            if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-            softmax_step(s, vf, m, l, acc);
+            if (Q8) s *= a.kd[idx];
+            if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+            softmax_step(s, vf, Q8 ? a.vd[idx] : 1.f, m, l, acc);
         }
         if (lane == 0) {
             sm_m[warp] = m;
@@ -81,11 +140,11 @@ flash_decode_split(const float* __restrict__ q, const __nv_bfloat16* __restrict_
                     aa += sm_acc[w][t] * e;
                 }
             }
-            const size_t slot = ((size_t)b * H + head) * n_splits + split;
-            ws_acc[slot * D + t] = aa;
+            const size_t slot = ((size_t)b * a.H + head) * a.n_splits + split;
+            a.ws_acc[slot * D + t] = aa;
             if (t == 0) {
-                ws_ml[slot * 2] = mm;
-                ws_ml[slot * 2 + 1] = ll;
+                a.ws_ml[slot * 2] = mm;
+                a.ws_ml[slot * 2 + 1] = ll;
             }
         }
         __syncthreads();
@@ -113,26 +172,99 @@ flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ w
     out[bh * D + t] = aa / fmaxf(ll, 1e-30f);
 }
 
+template <bool Q8, bool PAGED>
+int launch(const DecodeArgs& a, void* out, int B, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    decode_split<Q8, PAGED><<<dim3(a.n_splits, a.Hkv, B), WARPS * 32, 0, st>>>(a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    flash_decode_merge<<<dim3(a.H, B), D, 0, st>>>(a.ws_acc, a.ws_ml, static_cast<float*>(out),
+                                                   a.n_splits);
+    return (int)cudaGetLastError();
+}
+
+DecodeArgs make_args(const void* q, const void* k, const void* kd, const void* v,
+                     const void* vd, const void* tables, const void* lengths,
+                     const void* starts, void* ws_acc, void* ws_ml, int H, int Hkv, int S,
+                     int max_blocks, int n_pages, int chunk, int n_splits, float scale,
+                     float softcap) {
+    DecodeArgs a;
+    a.q = static_cast<const float*>(q);
+    a.k = k;
+    a.v = v;
+    a.kd = static_cast<const float*>(kd);
+    a.vd = static_cast<const float*>(vd);
+    a.tables = static_cast<const int*>(tables);
+    a.lengths = static_cast<const int*>(lengths);
+    a.starts = static_cast<const int*>(starts);
+    a.ws_acc = static_cast<float*>(ws_acc);
+    a.ws_ml = static_cast<float*>(ws_ml);
+    a.H = H;
+    a.Hkv = Hkv;
+    a.S = S;
+    a.max_blocks = max_blocks;
+    a.n_pages = n_pages;
+    a.chunk = chunk;
+    a.n_splits = n_splits;
+    a.scale = scale;
+    a.softcap = softcap;
+    return a;
+}
+
 }  // namespace
 
-// q f32 [B,H,D]; k, v bf16 [B,Hkv,S,D]; lengths, starts int32 [B] (starts may
-// be null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
-// [B*H*n_splits*2] scratch. n_splits = ceil(S / chunk). D must be 128.
+// In every entry: q f32 [B,H,D]; lengths, starts int32 [B] (starts may be
+// null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
+// [B*H*n_splits*2] scratch. D must be 128.
+
+// k, v bf16 [B,Hkv,S,D]; n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode(const void* q, const void* k, const void* v, const void* lengths,
                              const void* starts, void* out, void* ws_acc, void* ws_ml, int B,
                              int H, int Hkv, int S, int chunk, float scale, float softcap,
                              void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int n_splits = (S + chunk - 1) / chunk;
-    flash_decode_split<<<dim3(n_splits, Hkv, B), WARPS * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-        static_cast<const int*>(starts), static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
-        H, Hkv, S, chunk, n_splits, scale, softcap);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    flash_decode_merge<<<dim3(H, B), D, 0, st>>>(static_cast<const float*>(ws_acc),
-                                                  static_cast<const float*>(ws_ml),
-                                                  static_cast<float*>(out), n_splits);
-    return (int)cudaGetLastError();
+    return launch<false, false>(make_args(q, k, nullptr, v, nullptr, nullptr, lengths, starts,
+                                          ws_acc, ws_ml, H, Hkv, S, 0, 0, chunk, n_splits,
+                                          scale, softcap),
+                                out, B, stream);
+}
+
+// kq, vq int8 [B,Hkv,S,D]; kd, vd f32 [B,Hkv,1,S]; n_splits = ceil(S / chunk).
+KERNELS_API int flash_decode_q8(const void* q, const void* kq, const void* kd, const void* vq,
+                                const void* vd, const void* lengths, const void* starts,
+                                void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
+                                int S, int chunk, float scale, float softcap, void* stream) {
+    const int n_splits = (S + chunk - 1) / chunk;
+    return launch<true, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
+                                         ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
+                                         softcap),
+                               out, B, stream);
+}
+
+// k, v bf16 pools [P,Hkv,ps,D]; tables int32 [B,max_blocks]; a split is
+// pages_per_split pages; n_splits = ceil(max_blocks / pages_per_split).
+KERNELS_API int flash_decode_paged(const void* q, const void* k, const void* v,
+                                   const void* tables, const void* lengths, const void* starts,
+                                   void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
+                                   int ps, int max_blocks, int n_pages, int pages_per_split,
+                                   float scale, float softcap, void* stream) {
+    const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
+    return launch<false, true>(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts,
+                                         ws_acc, ws_ml, H, Hkv, ps, max_blocks, n_pages,
+                                         pages_per_split * ps, n_splits, scale, softcap),
+                               out, B, stream);
+}
+
+// kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables as above.
+KERNELS_API int flash_decode_paged_q8(const void* q, const void* kq, const void* kd,
+                                      const void* vq, const void* vd, const void* tables,
+                                      const void* lengths, const void* starts, void* out,
+                                      void* ws_acc, void* ws_ml, int B, int H, int Hkv, int ps,
+                                      int max_blocks, int n_pages, int pages_per_split,
+                                      float scale, float softcap, void* stream) {
+    const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
+    return launch<true, true>(make_args(q, kq, kd, vq, vd, tables, lengths, starts, ws_acc,
+                                        ws_ml, H, Hkv, ps, max_blocks, n_pages,
+                                        pages_per_split * ps, n_splits, scale, softcap),
+                              out, B, stream);
 }

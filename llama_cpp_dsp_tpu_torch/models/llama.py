@@ -6,10 +6,14 @@ projection → rms_norm → SwiGLU FFN → residual; final norm → lm_head.
 Weights are QTensors (packed GGUF blocks) or dense tensors; matmuls go
 through ops.qmm, which launches the hand-written kernels on the card.
 
-Decode (T=1) takes the fused attention kernel when `fused` is on and the
-layer fits its scope, else the flash-decode kernel (head_dim 128); prefill
-(T>1) and other head dims take the plain `attention` below, as the JAX
-package's XLA path does.
+Decode (T=1) takes the fused attention kernel when `fused` is on, the
+cache is the bf16 `KVCache` and the layer fits its scope; otherwise the
+decode kernel of the cache's type (head_dim 128): flash_decode,
+flash_decode_q8, flash_decode_paged or flash_decode_paged_q8. Prefill (T>1),
+other head dims and the packed mixed prompt+decode step (`forward_packed`)
+take the plain `attention` below, as the JAX package's XLA path does.
+`n_past`, the cache write offset, is a scalar or a [B] tensor (batched
+decode over slots; an offset of `capacity` leaves an idle slot untouched).
 The residual stream follows JAX's dtype promotion: bf16 embeddings, f32
 after the first residual add.
 """
@@ -25,7 +29,8 @@ import torch
 from ..gguf.constants import GGMLType
 from ..ops import QTensor, qmm, rms_norm, silu, softmax_f32, take_rows
 from ..ops.rope import RopeParams, _rope_angles, apply_rope
-from ..runtime.kv_cache import KVCache, causal_mask
+from ..runtime.kv_cache import KVCache, QuantKVCache, causal_mask
+from ..runtime.paged_kv import PagedKVCache, PagedQuantKVCache
 
 
 @dataclass(frozen=True)
@@ -75,8 +80,8 @@ def ffn_dense(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
     return qmm(h, layer["ffn_down"])
 
 
-def self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache: KVCache,
-                   layer_idx: int, n_past: int, fused: bool, angles: dict):
+def self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx: int,
+                   n_past, fused: bool, angles: dict):
     """QKV → rope → cached attention → output projection. Returns out."""
     b, t = x.shape[:2]
     h, d = cfg.n_heads, cfg.head_dim
@@ -91,16 +96,18 @@ def self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache: KVCache
 
 def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, angles):
     """One-kernel decode attention (ops/kernels/attn_fused.py) when the layer
-    is in the kernel's scope: Q4_0 row-fused QKV, head_dim 128, full-dim
-    NORM rope, B ≤ 8 (attn_fused.in_scope). Returns attn [B, H, D] f32 or
-    None. Unlike the JAX gate there is no K % 4096 rule: that rule is a TPU
-    timing (misaligned scale lanes), not a limit of this kernel."""
+    is in the kernel's scope: a bf16 KVCache, Q4_0 row-fused QKV, head_dim
+    128, full-dim NORM rope, B ≤ 8 (attn_fused.in_scope). Returns attn
+    [B, H, D] f32 or None. Unlike the JAX gate there is no K % 4096 rule
+    and no capacity % 128 rule: both are TPU lane layouts, not limits of
+    this kernel, which takes any capacity."""
     from ..ops.kernels.attn_fused import HEAD_DIM, attn_decode_fused, in_scope
 
     fused = layer.get("attn_qkv_fused")
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]
-    if not (isinstance(fused, QTensor) and fused.kind == GGMLType.Q4_0):
+    if not (isinstance(fused, QTensor) and fused.kind == GGMLType.Q4_0
+            and type(cache) is KVCache and cache.k[0].dtype == torch.bfloat16):
         return None
     rp = cfg.rope
     if rp.mode != "norm" or rp.n_dims != d or d != HEAD_DIM:
@@ -113,7 +120,9 @@ def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, angles):
         angles[key] = _rope_angles(positions[:, 0], rp, ff)
     cos, sin = angles[key]
     lengths = positions[:, 0] + 1
-    write_pos = torch.full((b,), n_past, dtype=torch.int32, device=x.device)
+    # per-slot write rows (a scalar n_past broadcasts); the kernel drops a
+    # write outside [0, S), which leaves an idle slot's rows untouched
+    write_pos = torch.as_tensor(n_past, device=x.device).to(torch.int32).expand(b)
     k_l, v_l = cache.layer(layer_idx)
     return attn_decode_fused(x[:, 0], fused, k_l, v_l, cos, sin, lengths, None, write_pos,
                              n_heads=h, n_kv_heads=hkv, scale=1.0 / math.sqrt(d))
@@ -140,48 +149,118 @@ def _project_qkv(x, layer: Params, cfg: LlamaConfig, positions):
     return q, k, v
 
 
-def _cached_attention(q, k, v, layer, cfg: LlamaConfig, positions, cache: KVCache,
-                      layer_idx: int, n_past: int):
+def _cached_attention(q, k, v, layer, cfg: LlamaConfig, positions, cache, layer_idx: int,
+                      n_past):
     b, t = q.shape[:2]
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cache.write(layer_idx, k, v, n_past)
     scale = 1.0 / math.sqrt(d)
-    k_all, v_all = cache.layer(layer_idx)
     if t == 1 and h % hkv == 0 and d == 128:
-        from ..ops.kernels.attention import flash_decode
+        # decode kernel of the cache's type (JAX llama.py:682-716). The TPU
+        # gates capacity % 128 and, for paged q8, page_size % 128 are not
+        # carried over: they are Mosaic lane layouts, and these kernels take
+        # any capacity and any page size.
+        from ..ops.kernels import attention as ka
 
-        attn = flash_decode(q[:, 0], k_all, v_all, positions[:, 0] + 1, None, scale=scale)
+        lengths = positions[:, 0] + 1
+        if isinstance(cache, PagedQuantKVCache):
+            attn = ka.flash_decode_paged_q8(q[:, 0], *cache.packed_pages(layer_idx),
+                                            cache.tables, lengths, scale=scale)
+        elif isinstance(cache, PagedKVCache):
+            attn = ka.flash_decode_paged(q[:, 0], cache.k[layer_idx], cache.v[layer_idx],
+                                         cache.tables, lengths, scale=scale)
+        elif isinstance(cache, QuantKVCache):
+            attn = ka.flash_decode_q8(q[:, 0], *cache.packed_layer(layer_idx), lengths,
+                                      scale=scale)
+        else:
+            attn = ka.flash_decode(q[:, 0], *cache.layer(layer_idx), lengths, scale=scale)
         attn = attn.reshape(b, 1, h * d).to(COMPUTE_DTYPE)
         return qmm(attn, layer["attn_output"])
-    mask = causal_mask(positions, cache.capacity, n_past)
+    k_all, v_all = cache.layer(layer_idx)
+    mask = causal_mask(positions, k_all.shape[2], n_past)
     attn = attention(q, k_all, v_all, mask, scale).to(COMPUTE_DTYPE)
     return qmm(attn, layer["attn_output"])
 
 
-def decode_layer(x, layer: Params, cfg: LlamaConfig, positions, cache: KVCache,
-                 layer_idx: int, n_past: int, fused: bool, angles: dict):
+def packed_self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx: int,
+                          slot_ids: torch.Tensor):
+    """Attention of a packed prompt+decode ubatch (JAX llama.py:807-867):
+    x [1, P, C], positions [1, P] = each token's cache row (== capacity for
+    padding), slot_ids [P]. K/V are scattered at (slot, row) first (padding
+    dropped); every token then attends to its own slot's rows ≤ its row.
+    Plain PyTorch, as the JAX package leaves it to XLA: scores over every
+    slot, then each token's own slot is gathered."""
+    q, k, v = _project_qkv(x, layer, cfg, positions)
+    p = q.shape[1]
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = positions[0]
+    cache.write_packed(layer_idx, k[0], v[0], slot_ids, rows)
+    k_all, v_all = cache.layer(layer_idx)  # [B, Hkv, S, D] (a gather for pages)
+    nb, _, s, _ = k_all.shape
+    qf = q[0].float().reshape(p, hkv, h // hkv, d)
+    scores = torch.einsum("phrd,bhsd->bhrps", qf, k_all.float()) * (1.0 / math.sqrt(d))
+    j = torch.arange(s, device=x.device)
+    causal = j[None, :] <= rows[:, None]  # [P, S]
+    own = slot_ids[None, :] == torch.arange(nb, device=x.device)[:, None]  # [B, P]
+    attend = own[:, :, None] & causal[None]
+    bias = torch.where(attend, 0.0, torch.finfo(torch.float32).min)
+    probs = softmax_f32(scores + bias[:, None, None], dim=-1)
+    out = torch.einsum("bhrps,bhsd->bhrpd", probs, v_all.float())
+    sel = out.permute(3, 0, 1, 2, 4)[torch.arange(p, device=x.device), slot_ids.long()]
+    attn = sel.reshape(1, p, h * d).to(COMPUTE_DTYPE)
+    return qmm(attn, layer["attn_output"])
+
+
+def decode_layer(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx: int, n_past,
+                 fused: bool, angles: dict, slot_ids: torch.Tensor | None = None):
+    """One block; slot_ids set means a packed mixed ubatch (forward_packed)."""
     attn_in = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    attn = self_attention(attn_in, layer, cfg, positions, cache, layer_idx, n_past, fused,
-                          angles)
+    if slot_ids is not None:
+        attn = packed_self_attention(attn_in, layer, cfg, positions, cache, layer_idx, slot_ids)
+    else:
+        attn = self_attention(attn_in, layer, cfg, positions, cache, layer_idx, n_past, fused,
+                              angles)
     x = x + attn
     ffn_in = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
     return x + ffn_dense(ffn_in, layer, cfg)
 
 
-@torch.inference_mode()
-def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
-            cache: KVCache, n_past: int = 0, *, fused: bool = True) -> torch.Tensor:
-    """tokens, positions [B, T] → logits [B, T, n_vocab] f32; the cache is
-    written in place at rows n_past .. n_past+T-1.
-
-    fused: decode (T=1) attention through the fused kernel when the layer is
-    in its scope; off, or out of scope, decode takes flash decode."""
-    x = take_rows(params["token_embd"], tokens, dtype=COMPUTE_DTYPE)
-    angles: dict = {}  # rope angles, shared by the layers of one step
-    for i, layer in enumerate(params["layers"]):
-        x = decode_layer(x, layer, cfg, positions, cache, i, n_past, fused, angles)
+def _lm_head(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["output_norm"], cfg.rms_eps)
     out_w = params.get("output")
     if out_w is None:
         out_w = params["token_embd"]
     return qmm(x, out_w)
+
+
+@torch.inference_mode()
+def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, positions: torch.Tensor,
+            cache, n_past=0, *, fused: bool = True) -> torch.Tensor:
+    """tokens, positions [B, T] → logits [B, T, n_vocab] f32; the cache is
+    written in place at rows n_past .. n_past+T-1 (n_past a scalar, or a [B]
+    tensor with T=1).
+
+    fused: decode (T=1) attention through the fused kernel when the layer is
+    in its scope; off, or out of scope, decode takes the cache's decode
+    kernel."""
+    x = take_rows(params["token_embd"], tokens, dtype=COMPUTE_DTYPE)
+    angles: dict = {}  # rope angles, shared by the layers of one step
+    for i, layer in enumerate(params["layers"]):
+        x = decode_layer(x, layer, cfg, positions, cache, i, n_past, fused, angles)
+    return _lm_head(params, cfg, x)
+
+
+@torch.inference_mode()
+def forward_packed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   slot_ids: torch.Tensor, rows: torch.Tensor, cache,
+                   out_idx: torch.Tensor) -> torch.Tensor:
+    """Mixed prompt+decode step over one packed token list (JAX
+    llama.py:1032-1083): tokens, slot_ids, rows [P] (rows == the cache
+    capacity for padding), out_idx [n_slots] the packed index whose logits
+    each slot needs. One pass over the weights serves every slot; only the
+    out_idx rows reach the LM head. Returns logits [n_slots, n_vocab] f32."""
+    x = take_rows(params["token_embd"], tokens[None, :], dtype=COMPUTE_DTYPE)
+    positions = rows[None, :]
+    for i, layer in enumerate(params["layers"]):
+        x = decode_layer(x, layer, cfg, positions, cache, i, 0, False, {}, slot_ids)
+    return _lm_head(params, cfg, x[0, out_idx.long()])

@@ -12,6 +12,9 @@ LAUNCHES: dict[str, int] = {
     "qmm_q4_0": 0,
     "qmm_q8_0": 0,
     "flash_decode": 0,
+    "flash_decode_q8": 0,
+    "flash_decode_paged": 0,
+    "flash_decode_paged_q8": 0,
     "attn_fused": 0,
 }
 

@@ -1,14 +1,19 @@
-"""Decode attention (T=1) over a bf16 KV cache.
+"""Decode attention (T=1) over the KV caches: bf16 (`flash_decode`), Q8_0
+rows (`flash_decode_q8`), bf16 pages (`flash_decode_paged`) and Q8_0 pages
+(`flash_decode_paged_q8`).
 
-Counterpart of the JAX package's ops/pallas/attention.py (`flash_decode`).
-The CUDA kernel (csrc/flash_decode.cu) is split-S flash decoding with a
-log-sum-exp merge of the splits.
+Counterpart of the JAX package's ops/pallas/attention.py entries of the same
+names. All four run one templated CUDA kernel (csrc/flash_decode.cu):
+split-S flash decoding with a log-sum-exp merge of the splits. A q8 score
+is (q·kq)·kd[row] and a q8 value term (p·vd[row])·vq, as the TPU kernels
+fold the row scales; no cache is dequantized into a buffer. A paged split
+is a run of pages read through the block table.
 
-Tolerance against the JAX kernel and between kernel and plain version:
-atol 2e-5 with f32 inputs and 2e-3 with a bf16 cache, as in
-tests/test_flash_attention.py (sums are taken in another order); on the
-card (chip_smoke.py) also NMSE ≤ 1e-8 for each slot's output, which a
-dropped cache row exceeds.
+Tolerances against the JAX kernels (plain versions, CPU): atol 2e-5 with
+f32 inputs and 2e-3 with a bf16 cache (tests/test_flash_attention.py), 1e-5
+for the q8 and paged forms (tests/test_quant_kv.py, tests/test_paged_kv.py);
+sums are taken in another order. Kernel against plain version on the card
+(chip_smoke.py): per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds.
 """
 
 from __future__ import annotations
@@ -18,19 +23,17 @@ import torch
 from . import LAUNCHES, aligned16, stream_handle
 
 SPLIT_ROWS = 64  # cache rows per split (one block per split, kv head and slot)
+HEAD_DIM = 128
+_Q8_DTYPES = (torch.int8, torch.float32, torch.int8, torch.float32)
 
 
-def flash_decode_plain(q, k, v, lengths, starts=None, *, scale: float,
-                       softcap: float = 0.0) -> torch.Tensor:
-    """q [B,H,D], k/v [B,Hkv,S,D] → [B,H,D] f32 over rows [start, length)."""
-    b, h, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    rep = h // hkv
-    qf = q.float().reshape(b, hkv, rep, d) * scale
-    sc = torch.einsum("bhrd,bhsd->bhrs", qf, k.float())
+def _softmax_out(sc, v, lengths, starts, softcap, vscale=None):
+    """Masked softmax over scores [B,Hkv,rep,S] and the value sum; vscale
+    [B,Hkv,1,S] folds a q8 row scale into the probabilities."""
+    b, hkv, rep, s = sc.shape
     if softcap:
         sc = torch.tanh(sc / softcap) * softcap
-    j = torch.arange(s, device=q.device)
+    j = torch.arange(s, device=sc.device)
     st = torch.zeros_like(lengths) if starts is None else starts
     valid = (j[None, :] < lengths[:, None]) & (j[None, :] >= st[:, None])
     sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
@@ -38,39 +41,158 @@ def flash_decode_plain(q, k, v, lengths, starts=None, *, scale: float,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhrs,bhsd->bhrd", p, v.float()) / l.clamp_min(1e-30)
-    return out.reshape(b, h, d)
+    pv = p if vscale is None else p * vscale
+    out = torch.einsum("bhrs,bhsd->bhrd", pv, v.float()) / l.clamp_min(1e-30)
+    return out.reshape(b, hkv * rep, -1)
+
+
+def flash_decode_plain(q, k, v, lengths, starts=None, *, scale: float,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D], k/v [B,Hkv,S,D] → [B,H,D] f32 over rows [start, length)."""
+    b, h, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, h // hkv, d) * scale
+    sc = torch.einsum("bhrd,bhsd->bhrs", qf, k.float())
+    return _softmax_out(sc, v, lengths, starts, softcap)
+
+
+def flash_decode_q8_plain(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D], int8 k_qs/v_qs [B,Hkv,S,D], f32 row scales k_d/v_d
+    [B,Hkv,1,S] → [B,H,D] f32."""
+    b, h, d = q.shape
+    hkv = k_qs.shape[1]
+    qf = q.float().reshape(b, hkv, h // hkv, d) * scale
+    sc = torch.einsum("bhrd,bhsd->bhrs", qf, k_qs.float()) * k_d
+    return _softmax_out(sc, v_qs, lengths, starts, softcap, vscale=v_d)
+
+
+def _gather_pages(pool, tables):
+    """Pool [P, Hkv, ps, X] through tables [B, nb] (clamped to P-1) →
+    [B, Hkv, nb*ps, X]."""
+    g = pool[torch.clamp(tables.long(), max=pool.shape[0] - 1)]
+    b, nb, hkv, ps = g.shape[:4]
+    return g.transpose(1, 2).reshape(b, hkv, nb * ps, *g.shape[4:])
+
+
+def flash_decode_paged_plain(q, k_pages, v_pages, tables, lengths, starts=None, *,
+                             scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D], pools [P,Hkv,ps,D], tables [B,max_blocks] → [B,H,D] f32."""
+    return flash_decode_plain(q, _gather_pages(k_pages, tables), _gather_pages(v_pages, tables),
+                              lengths, starts, scale=scale, softcap=softcap)
+
+
+def flash_decode_paged_q8_plain(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None, *,
+                                scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """As flash_decode_paged_plain over int8 pools with scales [P,Hkv,1,ps]."""
+    def scales(pool):
+        return _gather_pages(pool[:, :, 0], tables)[:, :, None, :]
+
+    return flash_decode_q8_plain(q, _gather_pages(k_qs, tables), scales(k_d),
+                                 _gather_pages(v_qs, tables), scales(v_d), lengths, starts,
+                                 scale=scale, softcap=softcap)
+
+
+def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int,
+            tail: tuple, scale: float, softcap: float) -> torch.Tensor:
+    """Check the operands, allocate output and scratch, launch C entry
+    `name` and count it. planes: the cache operands in the entry's order,
+    dtypes: the dtype each must have."""
+    from .build import check, lib
+
+    b, h, d = q.shape
+    hkv = planes[0].shape[1]
+    if d != HEAD_DIM or planes[0].shape[-1] != d or h % hkv or lengths.shape != (b,):
+        raise ValueError(f"{name}: q {tuple(q.shape)} cache {tuple(planes[0].shape)}: needs "
+                         f"D={HEAD_DIM} and H % Hkv == 0")
+    for t, want in zip(planes, dtypes):
+        if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: cache operand {t.dtype}{tuple(t.shape)} must be "
+                             f"{want}, contiguous and 16-byte aligned")
+    for t in (*planes, lengths) + (() if tables is None else (tables,)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+    qf = aligned16(q.float().contiguous())
+    ln = lengths.to(torch.int32).contiguous()
+    st = None if starts is None else starts.to(device=q.device, dtype=torch.int32).contiguous()
+    tb = () if tables is None else (tables.to(torch.int32).contiguous(),)
+    out = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty(b * h * n_splits * d, dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (qf, *planes, *tb, ln)]
+    rc = getattr(lib(), name)(*ptrs, None if st is None else st.data_ptr(), out.data_ptr(),
+                              ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, hkv, *tail,
+                              float(scale), float(softcap), stream_handle(q))
+    check(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def flash_decode(q, k, v, lengths, starts=None, *, scale: float,
                  softcap: float = 0.0) -> torch.Tensor:
-    """Returns [B, H, D] f32 attention output (q roped, taken in f32)."""
+    """q [B,H,D] (roped, taken in f32), bf16 k/v [B,Hkv,S,D] → [B,H,D] f32."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, starts, scale=scale, softcap=softcap)
-    from .build import check, lib
+    s = k.shape[2]
+    if k.shape != v.shape or k.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_decode: k {tuple(k.shape)} v {tuple(v.shape)} q {tuple(q.shape)}")
+    return _launch("flash_decode", q, (k, v), (torch.bfloat16,) * 2, None, lengths, starts,
+                   -(-s // SPLIT_ROWS), (s, SPLIT_ROWS), scale, softcap)
 
-    b, h, d = q.shape
-    _, hkv, s, dk = k.shape
-    if (d != 128 or dk != d or k.shape != v.shape or k.shape[0] != b or h % hkv
-            or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16):
-        raise ValueError(f"flash_decode: q {tuple(q.shape)} k {tuple(k.shape)} {k.dtype}: "
-                         "needs D=128, a bf16 cache and H % Hkv == 0")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (k, v)):
-        raise ValueError("flash_decode: cache must be contiguous and 16-byte aligned")
-    for t in (k, v, lengths):
-        if t.device != q.device:
-            raise ValueError(f"flash_decode: tensors on {t.device} and {q.device}")
-    qf = aligned16(q.float().contiguous())
-    lengths = lengths.to(torch.int32).contiguous()
-    st = None if starts is None else starts.to(device=q.device, dtype=torch.int32).contiguous()
-    n_splits = -(-s // SPLIT_ROWS)
-    out = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
-    ws_acc = torch.empty(b * h * n_splits * d, dtype=torch.float32, device=q.device)
-    ws_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32, device=q.device)
-    rc = lib().flash_decode(qf.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                            None if st is None else st.data_ptr(), out.data_ptr(),
-                            ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, hkv, s, SPLIT_ROWS,
-                            float(scale), float(softcap), stream_handle(q))
-    check(rc, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return out
+
+def flash_decode_q8(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D]; int8 k_qs/v_qs [B,Hkv,S,D]; f32 k_d/v_d [B,Hkv,1,S]."""
+    if q.device.type == "cpu":
+        return flash_decode_q8_plain(q, k_qs, k_d, v_qs, v_d, lengths, starts, scale=scale,
+                                     softcap=softcap)
+    b, hkv, s, _ = k_qs.shape
+    if (v_qs.shape != k_qs.shape or k_d.shape != (b, hkv, 1, s) or v_d.shape != k_d.shape
+            or b != q.shape[0]):
+        raise ValueError(f"flash_decode_q8: k_qs {tuple(k_qs.shape)} k_d {tuple(k_d.shape)} "
+                         f"v_qs {tuple(v_qs.shape)} v_d {tuple(v_d.shape)} q {tuple(q.shape)}")
+    return _launch("flash_decode_q8", q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, None, lengths,
+                   starts, -(-s // SPLIT_ROWS), (s, SPLIT_ROWS), scale, softcap)
+
+
+def _pages_per_split(ps: int) -> int:
+    return max(1, SPLIT_ROWS // ps)
+
+
+def _paged_tail(name, pool, tables, q):
+    n_pages, _, ps, _ = pool.shape
+    nb = tables.shape[1]
+    if tables.dim() != 2 or tables.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} for q {tuple(q.shape)}")
+    pps = _pages_per_split(ps)
+    return -(-nb // pps), (ps, nb, n_pages, pps)
+
+
+def flash_decode_paged(q, k_pages, v_pages, tables, lengths, starts=None, *, scale: float,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D]; bf16 pools [P,Hkv,ps,D]; tables [B,max_blocks] int32 page
+    ids (an entry ≥ P is clamped to P-1 and never read below the length)."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pages, v_pages, tables, lengths, starts,
+                                        scale=scale, softcap=softcap)
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"flash_decode_paged: k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
+    n_splits, tail = _paged_tail("flash_decode_paged", k_pages, tables, q)
+    return _launch("flash_decode_paged", q, (k_pages, v_pages), (torch.bfloat16,) * 2, tables,
+                   lengths, starts, n_splits, tail, scale, softcap)
+
+
+def flash_decode_paged_q8(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None, *,
+                          scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D]; int8 pools [P,Hkv,ps,D]; f32 scales [P,Hkv,1,ps]; tables
+    [B,max_blocks] int32."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_q8_plain(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts,
+                                           scale=scale, softcap=softcap)
+    p, hkv, ps, _ = k_qs.shape
+    if v_qs.shape != k_qs.shape or k_d.shape != (p, hkv, 1, ps) or v_d.shape != k_d.shape:
+        raise ValueError(f"flash_decode_paged_q8: k_qs {tuple(k_qs.shape)} k_d "
+                         f"{tuple(k_d.shape)} v_qs {tuple(v_qs.shape)} v_d {tuple(v_d.shape)}")
+    n_splits, tail = _paged_tail("flash_decode_paged_q8", k_qs, tables, q)
+    return _launch("flash_decode_paged_q8", q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, tables,
+                   lengths, starts, n_splits, tail, scale, softcap)

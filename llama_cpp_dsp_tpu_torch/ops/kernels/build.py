@@ -34,6 +34,9 @@ _SIGNATURES = {
     "qmm_q4_0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qmm_q8_0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "flash_decode_q8": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "flash_decode_paged": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
+    "flash_decode_paged_q8": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "attn_fused_q4_0": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _F, _P],
 }

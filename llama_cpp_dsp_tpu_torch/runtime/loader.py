@@ -61,6 +61,20 @@ class LoadedModel:
     def n_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in _iter_tensors(self.params))
 
+    @property
+    def n_params(self) -> int:
+        """Weight elements (a packed tensor counts its logical [N, K])."""
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            if isinstance(tree, list):
+                return sum(count(v) for v in tree)
+            if isinstance(tree, QTensor):
+                return tree.shape[0] * tree.shape[1]
+            return 0 if tree is None else tree.numel()
+
+        return count(self.params)
+
 
 def _iter_tensors(tree):
     if isinstance(tree, dict):

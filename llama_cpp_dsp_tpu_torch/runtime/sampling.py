@@ -138,13 +138,19 @@ class SamplerChain:
     rng: np.random.Generator = field(default_factory=lambda: np.random.default_rng(0))
 
     @property
+    def is_greedy(self) -> bool:
+        """True for a pure greedy chain: device-side argmax is the same
+        choice (first max)."""
+        return len(self.samplers) == 1 and isinstance(self.samplers[0], Greedy)
+
+    @property
     def device_spec(self) -> dict | None:
         """Parameters for on-device sampling (ops/device_sampling) when the
         chain is greedy or the stateless top-k → top-p → min-p → temp → dist
         pipeline; None otherwise (host path)."""
         from ..ops.device_sampling import MAX_DEVICE_TOP_K
 
-        if len(self.samplers) == 1 and isinstance(self.samplers[0], Greedy):
+        if self.is_greedy:
             # greedy is top_k=1 on device: argmax, same first-max tie-break
             return {"top_k": 1, "top_p": 1.0, "min_p": 0.0, "temp": 1.0}
         spec = {"top_k": 0, "top_p": 1.0, "min_p": 0.0, "temp": 1.0}

@@ -107,3 +107,20 @@ class Tokenizer:
         if attr & TokenAttr.BYTE:
             return bytes([int(text[3:5], 16)]) if text.startswith("<0x") else text.encode()
         return unescape_whitespace(text).encode("utf-8")
+
+    def decode(self, tokens: list[int], *, remove_special: bool = False,
+               unparse_special: bool = False) -> str:
+        """reference llama_vocab::detokenize (llama-vocab.cpp:3000+), SPM."""
+        vocab = self.vocab
+        toks = list(tokens)
+        if remove_special and vocab.add_bos and toks and toks[0] == vocab.bos_id:
+            toks = toks[1:]
+        if remove_special and vocab.add_eos and toks and toks[-1] == vocab.eos_id:
+            toks = toks[:-1]
+        raw = b"".join(self.token_to_piece(t, special=unparse_special) for t in toks)
+        text = raw.decode("utf-8", errors="replace")
+        # spm adds a leading space on encode; strip it back off
+        if text.startswith(" ") and not (unparse_special
+                                         and vocab.attrs[toks[0]] & TokenAttr.CONTROL):
+            text = text[1:]
+        return text

@@ -81,6 +81,7 @@ class Vocab:
     add_bos: bool = False
     add_eos: bool = False
     add_space_prefix: bool = False
+    chat_template: str | None = None  # tokenizer.chat_template (jinja text)
 
     bos_id: int = TOKEN_NULL
     eos_id: int = TOKEN_NULL
@@ -167,5 +168,7 @@ class Vocab:
         ]:
             if key in kv:
                 setattr(v, attr, bool(kv[key]))
+        if Keys.Tokenizer.CHAT_TEMPLATE in kv:
+            v.chat_template = str(kv[Keys.Tokenizer.CHAT_TEMPLATE])
         v.__post_init__()  # rebuild caches after overrides (as the JAX package does)
         return v

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, its entry points refuse to fall back to the CPU silently, and its
-kernel wrappers take the plain versions only for CPU tensors."""
+package (nor the JAX server's aiohttp and jinja2), its entry points refuse
+to fall back to the CPU silently, and its kernel wrappers take the plain
+versions only for CPU tensors."""
 
 import os
 import subprocess
@@ -24,7 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _BLOCKER = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "llama_cpp_dsp_tpu")
+BLOCKED = ("jax", "jaxlib", "llama_cpp_dsp_tpu", "aiohttp", "jinja2")
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -54,7 +55,7 @@ def test_port_imports_with_jax_blocked():
         print("imported", len(names))
     """, ROOT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25
+    assert int(res.stdout.split()[-1]) >= 32
 
 
 def test_chip_smoke_refuses_without_card_or_port(tmp_path):
@@ -75,7 +76,9 @@ def test_chip_smoke_refuses_without_card_or_port(tmp_path):
 def test_entry_points_raise_without_gpu(tmp_path):
     from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
     from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.engine import Engine
     from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+    from llama_cpp_dsp_tpu_torch.serve.server import main as server_main
     from llama_cpp_dsp_tpu_torch.tools.cli import main
     from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
 
@@ -91,6 +94,11 @@ def test_entry_points_raise_without_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-m", path, "-p", "hi", "-n", "2"])
     assert LlamaContext(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server_main(["-m", path, "--port", "0"])
+    assert Engine(model, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_take_plain_version_on_cpu():
