@@ -7,7 +7,9 @@
 Phases:
   build    nvcc builds csrc/*.cu for sm_90a (one process per source).
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card, at the llama2-7B shapes, with its stated tolerance; times of
+           card, at the llama2-7B shapes (qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
+           Q4_K_M / Q5_K_M shapes), with its stated tolerance and, where it
+           has one, a planted fault that the tolerance must catch; times of
            kernel, plain version and a PyTorch yardstick call.
   small    a 2-layer head_dim-128 Q4_0 model: logits and greedy stream on
            the card (kernels) against the same model on the CPU (plain).
@@ -20,8 +22,16 @@ Phases:
            Q8_0 KV rows): four concurrent chat and completion requests each,
            two sharing a system prompt; then, on each engine, an idle slot's
            rows across a batched decode step and the first decode-step
-           logits against LlamaContext's.
+           logits against a B=1 forward over a contiguous cache of the
+           engine's row type.
   q8       a TinyLlama-1.1B-geometry Q8_0 GGUF through the CLI.
+  small_kq a 2-layer head_dim-128 Q4_K_M model with a llama-bpe vocab: logits
+           and greedy stream on the card against the CPU.
+  llama3   a full-width, full-depth Llama-3-8B-geometry Q4_K_M GGUF with a
+           llama-bpe vocab: the CLI (tokens/s, launches of one decode step,
+           a profiled chunk, a profiled 512-token prefill), then the server
+           (slots bf16 and paged q8_0) with chat through the llama3 template.
+  q5km     the same model as Q5_K_M through the CLI.
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -48,7 +58,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "small", "main", "serve", "q8")
+PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "llama3", "q5km")
 
 
 def fail(msg: str) -> None:
@@ -147,7 +157,33 @@ QMM_SHAPES_7B = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008), (320
 DECODE_CALLS_7B = {(4096, 4096): 32, (22016, 4096): 32, (4096, 11008): 32, (32000, 4096): 1}
 DECODE_CALLS_TINYLLAMA = {(2560, 2048): 22, (2048, 2048): 22, (11264, 2048): 22,
                           (2048, 5632): 22, (32000, 2048): 1}
+# Llama-3-8B Q4_K_M / Q5_K_M: the 16 layers whose attn_v is Q4_K (Q5_K) fuse
+# q|k|v into 6144 rows; the 16 use_more_bits layers run q and k apart and v
+# and ffn_down as Q6_K; the LM head is Q6_K
+QMM_SHAPES_L3 = [(6144, 4096), (4096, 4096), (1024, 4096), (28672, 4096), (4096, 14336)]
+DECODE_CALLS_L3 = {(6144, 4096): 16, (4096, 4096): 48, (1024, 4096): 16, (28672, 4096): 32,
+                   (4096, 14336): 16}
+DECODE_CALLS_L3_Q6 = {(1024, 4096): 16, (4096, 14336): 16, (128256, 4096): 1}
+KQ_BATCHES = (1, 4, 8, 128)
 QMM_NMSE_TOL = 5e-4
+
+
+def planted_qmm_fault(w):
+    """The weight with a bug of one sub-block's size planted, or None for
+    Q4_0/Q8_0: Q4_K/Q5_K with group 3's dmin·mn term dropped in every
+    superblock, Q6_K with 16-group 5's scale zeroed. The plain version on it
+    must fail the NMSE limit, or the limit would not catch such a kernel."""
+    from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
+
+    key, idx, label = {"Q4_K": ("mn", 3, "group 3's dmin*mn dropped"),
+                       "Q5_K": ("mn", 3, "group 3's dmin*mn dropped"),
+                       "Q6_K": ("sc", 5, "group 5's scale zeroed")}.get(w.kind.name,
+                                                                       (None, 0, ""))
+    if key is None:
+        return None, ""
+    bad = w[key].clone()
+    bad[:, :, idx] = 0
+    return QTensor(w.kind, w.shape, {**w.arrays, key: bad}), label
 
 
 def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0):
@@ -172,16 +208,22 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
             got = qmm(x, w)
             plain = qmm_plain(x, w)
             exact = x.float() @ w_exact.T
+            w_bad, label = planted_qmm_fault(w)
+            bad = None if w_bad is None else qmm_plain(x, w_bad)
             torch.cuda.synchronize()
             e_exact, e_plain = nmse(got, exact), nmse(got, plain)
             err = float((got - plain).abs().max())
             worst, worst_nmse = max(worst, err), max(worst_nmse, e_plain)
+            e_bad = "" if bad is None else f", planted fault '{label}' {nmse(bad, plain):.2e}"
             print(f"  qmm_{kind_name} N={n} K={k} B={b}: nmse vs exact f32 {e_exact:.2e}, "
-                  f"vs plain {e_plain:.2e}, max|kernel-plain| {err:.3e} "
+                  f"vs plain {e_plain:.2e}, max|kernel-plain| {err:.3e}{e_bad} "
                   f"(tol nmse {QMM_NMSE_TOL:g})")
             if not (e_exact <= QMM_NMSE_TOL and e_plain <= QMM_NMSE_TOL
                     and torch.isfinite(got).all()):
                 fail(f"qmm_{kind_name} N={n} K={k} B={b} disagrees with its plain version")
+            if bad is not None and not nmse(bad, plain) > QMM_NMSE_TOL:
+                fail(f"qmm_{kind_name}: the tolerance would not catch '{label}'")
+            del w_bad, bad
         calls = decode_calls.get((n, k), 0)
         if calls:  # time the decode GEMV (B=1) with the weight cold in L2
             x = torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -592,26 +634,18 @@ def profile_chunk(ctx, token: int, steps: int = 8) -> None:
     profile_steps(lambda: ctx._eval_sample_chunk(token, greedy, steps), steps)
 
 
-def phase_small() -> None:
+def small_model_check(path: Path, prompt_text: str, must: list[str], label: str) -> None:
+    """A small synthetic GGUF: logits of a prompt and of one decode step, and
+    a greedy stream, on the card (kernels) against the CPU (plain versions)."""
     import torch
 
-    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
-    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
     from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
     from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
     from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
-    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
 
-    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=2,
-                      head_dim=128, n_ff=512, n_vocab=512, n_ctx_train=128,
-                      rope=RopeParams(n_dims=128))
-    path = ROOT / "build" / "smoke" / "small-q4_0.gguf"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    write_synth_gguf(str(path), cfg, GGMLType.Q4_0, seed=5)
     model = load_model(str(path))
-    prompt = model.tokenizer.encode("hello world")
+    prompt = model.tokenizer.encode(prompt_text)
     ref = LlamaContext(model, n_ctx=64, device="cpu")
     ref_logits = ref.eval_tokens(prompt)
     ref_stream = list(LlamaContext(model, n_ctx=64, device="cpu").generate(
@@ -627,28 +661,61 @@ def phase_small() -> None:
     scale = float(abs(ref_logits).max())
     e_pre = float(abs(logits - ref_logits).max()) / scale
     e_dec = float(abs(step - ref_step).max()) / float(abs(ref_step).max())
-    print(f"  small model card vs CPU: prefill logits rel err {e_pre:.2e}, decode step "
-          f"{e_dec:.2e} (tol 2e-2); stream {stream} vs {ref_stream}")
-    require(counts, ["qmm_q4_0", "attn_fused"], "small")
+    print(f"  {label} card vs CPU: {len(prompt)}-token prefill logits rel err {e_pre:.2e}, "
+          f"decode step {e_dec:.2e} (tol 2e-2); stream {stream} vs {ref_stream}")
+    require(counts, must, label)
     if not (e_pre < 2e-2 and e_dec < 2e-2 and torch.isfinite(torch.from_numpy(step)).all()):
-        fail("small model on the card disagrees with the CPU path")
+        fail(f"{label} on the card disagrees with the CPU path")
     n_same = next((i for i, (a, b) in enumerate(zip(stream, ref_stream)) if a != b),
                   len(stream))
-    print(f"  small model greedy stream: {n_same}/{len(stream)} leading tokens agree")
+    print(f"  {label} greedy stream: {n_same}/{len(stream)} leading tokens agree")
     path.unlink()
 
 
-def write_7b(path: Path) -> None:
-    """The llama2-7B-geometry Q4_0 GGUF of random blocks that `main` and
-    `serve` share (written once, deleted at the end of the run)."""
-    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
-    from llama_cpp_dsp_tpu_torch.tools.synth import LLAMA2_7B, write_synth_gguf
+def phase_small() -> None:
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
 
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=2,
+                      head_dim=128, n_ff=512, n_vocab=512, n_ctx_train=128,
+                      rope=RopeParams(n_dims=128))
+    path = ROOT / "build" / "smoke" / "small-q4_0.gguf"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_synth_gguf(str(path), cfg, "Q4_0", seed=5)
+    small_model_check(path, "hello world", ["qmm_q4_0", "attn_fused"], "small")
+
+
+def phase_small_kq() -> None:
+    """A 2-layer head_dim-128 GQA Q4_K_M model with the llama-bpe vocab: layer
+    0 all Q4_K (q|k|v fused), layer 1 attn_v and ffn_down Q6_K, the LM head
+    Q6_K. The prompt is longer than 8 tokens, so prefill runs the tiled
+    kernels and decode the GEMVs."""
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=2048, n_ctx_train=256,
+                      rope=RopeParams(n_dims=128, freq_base=500000.0))
+    path = ROOT / "build" / "smoke" / "small-q4_k_m.gguf"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_synth_gguf(str(path), cfg, "Q4_K_M", seed=5, vocab="llama-bpe")
+    small_model_check(path, "The quick brown fox jumps over the lazy dog, then rests a while.",
+                      ["qmm_q4_k", "qmm_q6_k", "flash_decode"], "small_kq")
+
+
+def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "spm") -> None:
+    """A full-width, full-depth synthetic GGUF of `tools/synth.py` CONFIGS
+    (written once per run, deleted after its last phase)."""
+    from llama_cpp_dsp_tpu_torch.tools.synth import CONFIGS, write_synth_gguf
+
+    cfg = CONFIGS[cfg_name]
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    write_synth_gguf(str(path), LLAMA2_7B, GGMLType.Q4_0, seed=0)  # full width and depth
-    print(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB, {LLAMA2_7B.n_layers} "
-          f"layers) in {time.perf_counter() - t0:.1f} s")
+    write_synth_gguf(str(path), cfg, ftype, seed=seed, vocab=vocab)
+    print(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB, {cfg.n_layers} layers, "
+          f"{ftype}, {vocab} vocab) in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_main(records: dict, path: Path, model) -> None:
@@ -796,12 +863,39 @@ def _slot_state(cache, idx: int) -> list:
     return [b[idx].clone() for b in (*cache.k, *cache.v)]
 
 
-def _idle_slot_and_first_logits(engine, prompts, ref_token: int, ref_logits) -> float:
+def _reference_first_step(engine, prompt: list[int]):
+    """LlamaContext's computation on the engine's weights: `forward` at B=1
+    over a contiguous cache of the engine's row type (bf16 or Q8_0), the
+    prompt as one prefill, then one decode step on the prompt's argmax.
+    Returns (that token, the decode step's logits, the row type). The row
+    type is the engine's, so the comparison isolates the engine's path
+    (slots or pages, packed prefill, batched decode) from the Q8_0 rounding
+    of the rows, to which a random-weight model can be very sensitive."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.models.llama import forward
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import QuantKVCache, make_kv_cache
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQuantKVCache
+
+    cfg = engine.cfg
+    kv = "q8_0" if isinstance(engine.cache, (QuantKVCache, PagedQuantKVCache)) else "bf16"
+    cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.n_kv_heads,
+                          cfg.head_dim, kv, "cuda")
+    n = len(prompt)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+    logits = forward(engine.params, cfg, torch.tensor([prompt], device="cuda"), pos, cache, 0)
+    tok = int(logits[0, -1].argmax())
+    step = forward(engine.params, cfg, torch.tensor([[tok]], device="cuda"),
+                   torch.tensor([[n]], dtype=torch.int32, device="cuda"), cache, n)
+    return tok, step[0, 0].float().cpu().numpy(), kv
+
+
+def _idle_slot_and_first_logits(engine, prompts) -> float:
     """Prefill `prompts` into three slots through the engine, then one
     batched decode step through `forward` at B=4 with the fourth slot idle
     (its write offset is the capacity). Fails unless the idle slot's rows are
     byte-identical afterwards and prompts[0]'s logits agree with
-    LlamaContext's (ref_logits, after ref_token). Returns the relative diff."""
+    `_reference_first_step`'s. Returns the relative diff."""
     import numpy as np
     import torch
 
@@ -809,6 +903,7 @@ def _idle_slot_and_first_logits(engine, prompts, ref_token: int, ref_logits) -> 
     from llama_cpp_dsp_tpu_torch.runtime.engine import Request
     from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 
+    ref_token, ref_logits, kv = _reference_first_step(engine, list(prompts[0]))
     reqs = [engine.submit(Request(0, list(p), max_new_tokens=1, sampler=make_chain(temp=0)))
             for p in prompts]
     while not all(r.done.is_set() for r in reqs):
@@ -834,12 +929,13 @@ def _idle_slot_and_first_logits(engine, prompts, ref_token: int, ref_logits) -> 
     got = logits[where[0]].float().cpu().numpy()
     rel = float(np.abs(got - ref_logits).max() / np.abs(ref_logits).max())
     print(f"  idle slot {idle} byte-identical after a B={b} decode step: {same}; first decode "
-          f"logits vs LlamaContext: max rel diff {rel:.3e} (tol {LOGIT_RTOL:g}); engine's own "
-          f"first token {reqs[0].result_tokens[0]} vs {ref_token}")
+          f"logits vs B=1 forward over a contiguous {kv} cache: max rel diff {rel:.3e} "
+          f"(tol {LOGIT_RTOL:g}); engine's own first token {reqs[0].result_tokens[0]} vs "
+          f"{ref_token}")
     if not same:
         fail("a batched decode step changed an idle slot's cache rows")
     if not (rel < LOGIT_RTOL and np.isfinite(got).all()):
-        fail("first decode-step logits disagree with LlamaContext")
+        fail("first decode-step logits disagree with the B=1 forward")
     # the same step again (it rewrites the same rows), profiled
     print(f"  B={b} decode step (three slots decoding, one idle):")
     profile_steps(lambda: forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"),
@@ -847,11 +943,13 @@ def _idle_slot_and_first_logits(engine, prompts, ref_token: int, ref_logits) -> 
     return rel
 
 
-def phase_serve(records: dict, path: Path, model) -> None:
+def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: int = 1024,
+                system_repeat: int = 7) -> None:
     """The port's server in-process over each engine configuration: four
     concurrent requests through HTTP, two sharing a system prompt, the
     second of those sent once the first has decoded its first token (a
-    mixed prompt+decode step; a cached prefix)."""
+    mixed prompt+decode step; a cached prefix). Chat requests go through the
+    GGUF's chat template (none: chatml)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -859,12 +957,15 @@ def phase_serve(records: dict, path: Path, model) -> None:
     import torch
 
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
     from llama_cpp_dsp_tpu_torch.serve.server import build, build_arg_parser
 
     rng = np.random.default_rng(7)
     tok = model.tokenizer
-    system = "You answer questions about the sky. " * 7  # ~250 tokens: a shared system prompt
+    system = "You answer questions about the sky. " * system_repeat  # a shared system prompt
+    n_system = len(tok.encode(system, add_special=False))
+    # the prefix a later request reuses: the whole prompt (slots) or its full
+    # 128-row pages (paged)
+    min_cached = max(128, n_system // 128 * 128)
     chats = [{"messages": [{"role": "system", "content": system},
                            {"role": "user", "content": q}]}
              for q in ("Why is the sky blue?", "What makes sunsets red and orange?")]
@@ -876,15 +977,10 @@ def phase_serve(records: dict, path: Path, model) -> None:
           f"{len(tok.encode(system, add_special=True)) + 40} each")
     decode_prompts = [[int(t) for t in rng.integers(300, model.cfg.n_vocab, n)]
                       for n in (20, 45, 70)]
-    ref = LlamaContext(model, n_ctx=1024)
-    pre = ref.eval_tokens(decode_prompts[0])
-    ref_token = int(pre.argmax())
-    ref_logits = ref.eval_tokens([ref_token])
-    del ref
     texts, summary = {}, {}
-    for name, (flags, must) in SERVE_CONFIGS.items():
-        argv = ["-m", str(path), "--port", "0", "-np", "4", "-c", "1024", "--api-key", "smoke",
-                *flags]
+    for name, (flags, must) in configs.items():
+        argv = ["-m", str(path), "--port", "0", "-np", "4", "-c", str(n_ctx), "--api-key",
+                "smoke", *flags]
         args = build_arg_parser().parse_args(argv)
         engine, _, httpd = build(args, model)
         mixed = []  # decoding slots carried by each packed prompt+decode step
@@ -940,31 +1036,98 @@ def phase_serve(records: dict, path: Path, model) -> None:
             fail(f"serve {name}: no mixed prompt+decode step carried a decoding slot")
         if m["n_errors"]:
             fail(f"serve {name}: the engine counted {m['n_errors']} errors")
-        if not m.get("prompt_tokens_cached", 0) >= 256:
-            fail(f"serve {name}: the shared system prompt was not reused from the cache")
-        for k in must:
-            if k.startswith("flash_decode"):
-                records[k]["launches"] = counts[k]
+        if not m.get("prompt_tokens_cached", 0) >= min_cached:
+            fail(f"serve {name}: the shared {n_system}-token system prompt was not reused "
+                 f"from the cache")
+        for k in must:  # a kernel's count comes from the first path that runs it
+            records[k]["launches"] = records[k]["launches"] or counts[k]
         texts[name] = [c[2] for c in checked]
         summary[name] = {"tokens_per_s": n_tok / wall, "ttft_ms": ttft,
                          "cached": m["prompt_tokens_cached"], "launches": counts}
-        _idle_slot_and_first_logits(engine, decode_prompts, ref_token, ref_logits)
+        _idle_slot_and_first_logits(engine, decode_prompts)
         del engine
         torch.cuda.empty_cache()
     for name, t in texts.items():
-        same = [a == b for a, b in zip(t, texts["slots bf16"])]
-        print(f"  [{name}] replies equal to slots bf16's: {same}")
+        same = [a == b for a, b in zip(t, texts[next(iter(texts))])]
+        print(f"  [{name}] replies equal to {next(iter(texts))}'s: {same}")
     print(f"  serve summary: {json.dumps(summary)}")
 
 
+SERVE_CONFIGS_L3 = {  # name → (server flags, kernels its decode must launch)
+    "slots bf16": ([], ["flash_decode", "qmm_q4_k", "qmm_q6_k"]),
+    "paged q8_0": (["--kv-layout", "paged", "-ctk", "q8_0"],
+                   ["flash_decode_paged_q8", "qmm_q4_k", "qmm_q6_k"]),
+}
+
+
+def phase_llama3(records: dict, path: Path, model) -> None:
+    """Llama-3-8B Q4_K_M at full width and depth: the CLI, the launches of
+    one decode step by kernel, a profiled 8-step chunk and a profiled
+    512-token prefill, then the server in two configurations (B7 at Hkv 8 in
+    paged q8_0) through the llama3 chat template."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"])
+    counts = dict(LAUNCHES)
+    require(counts, ["qmm_q4_k", "qmm_q6_k", "flash_decode"], "llama3 CLI")
+    for k in ("qmm_q4_k", "qmm_q6_k"):
+        records[k]["launches"] = counts[k]
+    print(f"  Llama-3-8B Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
+    prompt = model.tokenizer.encode("hello")
+    ctx = LlamaContext(model, n_ctx=512)
+    first = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    ctx.eval_tokens([first])
+    torch.cuda.synchronize()
+    print(f"  launches of one decode step: "
+          f"{ {k: v for k, v in LAUNCHES.items() if v} }")
+    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
+    print(f"  decode step at context {ctx.n_past}:")
+    profile_chunk(ctx, stream[-1])
+    # prefill at a llama-3 prompt length: one call of 512 tokens (tiled qmm,
+    # the plain attention), to weigh B4 flash prefill
+    long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 80)[:512]
+
+    def prefill():
+        ctx.n_past = 0
+        ctx.eval_tokens(long)
+
+    print(f"  prefill of {len(long)} tokens in one call:")
+    profile_steps(prefill, 1)
+    del ctx
+    torch.cuda.empty_cache()
+    phase_serve(records, path, model, SERVE_CONFIGS_L3, n_ctx=2048, system_repeat=16)
+
+
+def phase_q5km(records: dict) -> None:
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    path = ROOT / "build" / "smoke" / "llama3-8b-q5_k_m.gguf"
+    try:
+        write_model(path, "llama3-8b", "Q5_K_M", seed=2, vocab="llama-bpe")
+        reset_launches()
+        _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "16", "--temp", "0",
+                          "-c", "256"])
+    finally:
+        path.unlink(missing_ok=True)
+    counts = dict(LAUNCHES)
+    require(counts, ["qmm_q5_k", "qmm_q6_k", "flash_decode"], "q5km")
+    records["qmm_q5_k"]["launches"] = counts["qmm_q5_k"]
+    print(f"  Llama-3-8B Q5_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
+
+
 def phase_q8(records: dict) -> None:
-    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.tools.synth import TINYLLAMA_1B, write_synth_gguf
 
     path = ROOT / "build" / "smoke" / "tinyllama-q8_0.gguf"
     path.parent.mkdir(parents=True, exist_ok=True)
-    write_synth_gguf(str(path), TINYLLAMA_1B, GGMLType.Q8_0, seed=1)
+    write_synth_gguf(str(path), TINYLLAMA_1B, "Q8_0", seed=1)
     reset_launches()
     _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "16", "--temp", "0", "-c", "256"])
     counts = dict(LAUNCHES)
@@ -994,6 +1157,12 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     "flash_decode_paged_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
                               "llama_cpp_dsp_tpu/ops/pallas/attention.py:1277",
                               f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
+    "qmm_q4_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:310", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q6_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:345", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q5_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:328", f"nmse <= {QMM_NMSE_TOL:g}"),
 }
 
 
@@ -1027,29 +1196,51 @@ def main(argv=None) -> int:
         if "registers" in line or "bytes stack" in line or line.startswith("=="):
             print("  " + line.strip())
     records = {name: {"launches": 0} for name in SOURCES}
+    smoke = ROOT / "build" / "smoke"
+    # synthetic GGUFs shared by phases: written and loaded on first use,
+    # deleted after their last phase (and at the end in any case)
+    files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm"),
+             "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe")}
+    loaded = {}
+
+    def model_of(key):
+        if key not in loaded:
+            from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+
+            path, cfg_name, ftype, vocab = files[key]
+            write_model(path, cfg_name, ftype, seed=0, vocab=vocab)
+            t0 = time.perf_counter()
+            loaded[key] = load_model(str(path))
+            print(f"  loaded {path.name} in {time.perf_counter() - t0:.1f} s")
+        return loaded[key]
+
+    def done_with(key):
+        loaded.pop(key, None)
+        files[key][0].unlink(missing_ok=True)
+        torch.cuda.empty_cache()
+
     steps = [("kernels", lambda: (check_qmm("q4_0", QMM_SHAPES_7B, (1, 8, 128),
                                             DECODE_CALLS_7B, records),
                                   check_qmm("q8_0", QMM_SHAPES_7B, (1, 8, 128), {}, records),
                                   check_qmm("q8_0", list(DECODE_CALLS_TINYLLAMA), (1,),
                                             DECODE_CALLS_TINYLLAMA, records),
+                                  check_qmm("q4_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
+                                            records),
+                                  check_qmm("q6_k", list(DECODE_CALLS_L3_Q6), KQ_BATCHES,
+                                            DECODE_CALLS_L3_Q6, records),
+                                  check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
+                                            records),
                                   check_flash_decode(records), check_attn_fused(records),
                                   check_decode_variants(records))),
              ("small", phase_small),
-             ("main", lambda: phase_main(records, big, the_7b())),
-             ("serve", lambda: phase_serve(records, big, the_7b())),
-             ("q8", lambda: phase_q8(records))]
-    big = ROOT / "build" / "smoke" / "llama2-7b-q4_0.gguf"
-    loaded = []
-
-    def the_7b():
-        """`main` and `serve` share one GGUF and one loaded model."""
-        if not loaded:
-            from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
-
-            write_7b(big)
-            loaded.append(load_model(str(big)))
-        return loaded[0]
-
+             ("main", lambda: phase_main(records, files["7b"][0], model_of("7b"))),
+             ("serve", lambda: (phase_serve(records, files["7b"][0], model_of("7b")),
+                                done_with("7b"))),
+             ("q8", lambda: phase_q8(records)),
+             ("small_kq", phase_small_kq),
+             ("llama3", lambda: (phase_llama3(records, files["l3"][0], model_of("l3")),
+                                 done_with("l3"))),
+             ("q5km", lambda: phase_q5km(records))]
     try:
         for name, fn in steps:
             if name in phases:
@@ -1058,7 +1249,8 @@ def main(argv=None) -> int:
                 fn()
                 print(f"[{name}] done in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
-        big.unlink(missing_ok=True)
+        for path, *_ in files.values():
+            path.unlink(missing_ok=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (src, replaces, tol) in SOURCES.items():

@@ -1,20 +1,43 @@
 // qmm.cu — packed dequant-matmul y[B,N] f32 = x[B,K] bf16 · dequant(W[N,K])ᵀ
-// for Q4_0 and Q8_0 weights kept packed in device memory.
+// for Q4_0, Q8_0, Q4_K, Q5_K and Q6_K weights kept packed in device memory.
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/qmm.py::_kernel with the Q4_0 body
-// (_body_q4_0 via _q4_tile_dot) and the Q8_0 body (_body_q8_0).
+// (_body_q4_0 via _q4_tile_dot), the Q8_0 body (_body_q8_0), and the K-quant
+// bodies _body_q4_K, _body_q5_K and _body_q6_K. It computes what those
+// bodies compute, not their Mosaic plane layout: the weights stay in GGUF
+// block order, with the K-quants' 6-bit scales unpacked once at load
+// (ops/qtensor.py):
+//   Q4_K: qs u8 [N,K/2], sc/mn u8 [N,S,8], d/dmin f32 [N,S]   (S = K/256)
+//         w = (d*sc)*q - dmin*mn per 32-element group; in each 64-element
+//         chunk j, byte l holds element l of group 2j (low nibble) and of
+//         group 2j+1 (high nibble)
+//   Q5_K: the Q4_K fields + qh u8 [N,S,32] (bit g of byte l: element 32g+l)
+//   Q6_K: ql u8 [N,K/2], qh u8 [N,K/4], sc i8 [N,S,16], d f32 [N,S]
+//         w = d*sc*(q-32) per 16-element group; in each 128-element half,
+//         element l+32i (l < 32) is ql[l] (i even) or ql[l+32] (i odd), low
+//         nibble for i < 2, high for i >= 2, plus bits 2i..2i+1 of qh[l]
 //
 // Bound on this card: at decode (B <= 8) the packed weight bytes over the
-// memory rate (7B Q4_0: ~3.7 GB per token, ~1.1 ms at 3.35 TB/s); the
-// arithmetic is ~2 operations per weight element and per activation row.
+// memory rate. Per 256 weights the repacked layout moves 144 B (Q4_0), 272
+// (Q8_0), 152 (Q4_K; GGUF 144, the unpacked scales and f32 d/dmin cost 8),
+// 184 (Q5_K) and 212 (Q6_K); the arithmetic is ~2 operations per weight
+// element and activation row.
 // Design: B <= 8 runs a GEMV, one warp per output row, lanes striding over
-// the 32-element blocks with one 16-byte load of packed bits per block (two
-// for Q8_0), dequantized in registers and summed with warp shuffles; the
-// activations stay in L1/L2 and the weights are read once. B > 8 (prefill)
-// runs a tiled tensor-core kernel: a 64x64 output tile per block, each
-// 32-wide K step dequantizes its weight tile into shared memory as bf16 and
-// multiplies it with WMMA bf16 fragments, f32 accumulation. Both are
-// simple first versions: no TMA, no wgmma, no pipelining across K steps.
+// units of the row: a 32-element block for Q4_0/Q8_0 (one 16-byte load of
+// packed bits, two for Q8_0); a 64-element chunk for Q4_K/Q5_K (two 16-byte
+// qs loads, consecutive lanes on consecutive chunks; Q5_K adds the 32-byte
+// qh of the superblock, shared by its four chunks through L1); for Q6_K a
+// 64-element unit of 16 consecutive l of one half, all four i (three
+// 16-byte loads: ql[l], ql[l+32], qh[l]), so K = 4096 gives 64 units for 32
+// lanes. Following ggml's vec_dot order each group's dot of the integer
+// values with x is scaled once by its effective scale (d·sc), and for
+// Q4_K/Q5_K the group's dmin·mn·Σx is subtracted; sums across lanes by warp
+// shuffles; the activations stay in L1/L2 and the weights are read once.
+// B > 8 (prefill) runs a tiled tensor-core kernel: a 64x64 output tile per
+// block, each 32-wide K step dequantizes its weight tile into shared memory
+// as bf16 (rounded from the same f32 products as the plain version) and
+// multiplies it with WMMA bf16 fragments, f32 accumulation. Both are simple
+// first versions: no TMA, no wgmma, no pipelining across K steps.
 #include "common.cuh"
 
 #include <mma.h>  // after cuda_bf16.h (common.cuh): bf16 WMMA fragments
@@ -23,18 +46,227 @@ namespace {
 
 constexpr int GEMV_WARPS = 4;  // output rows per block
 
-template <class Q, int NB>
+// 8 bf16 in a 16-byte vector → f32 (exact)
+__device__ __forceinline__ void bf16x8(const uint4 v, float out[8]) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        out[2 * e] = bf16_lo(u[e]);
+        out[2 * e + 1] = bf16_hi(u[e]);
+    }
+}
+
+// byte t of a 16-byte vector
+__device__ __forceinline__ uint32_t byte_of(const uint4 v, int t) {
+    const uint32_t w = t < 4 ? v.x : t < 8 ? v.y : t < 12 ? v.z : v.w;
+    return (w >> (8 * (t & 3))) & 0xffu;
+}
+
+// Each weight kind is a struct of its field pointers with
+//   UNIT                   elements of one GEMV lane step
+//   unit_dot<NB>(row, u, x, K, acc)   acc[b] += the dot of unit u of weight
+//                          row `row` with activation rows b < NB
+//   dequant16(row, K, k0, out)        bf16 weights k0 .. k0+15 of the row
+//                          (k0 % 16 == 0), rounded like the plain version
+
+template <class Q>
+struct Legacy {  // Q4_0 / Q8_0 (common.cuh)
+    const uint8_t* qs;
+    const __half* d;
+    static constexpr int UNIT = 32;
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const int nb = K >> 5;
+        block_dot<Q, NB>(qs + (size_t)row * (size_t)(nb * Q::QS_BYTES), d + (size_t)row * nb,
+                         u, x, K, acc);
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const int nb = K >> 5, kb = k0 >> 5, h = (k0 >> 4) & 1;
+        float w[32];
+        Q::unpack(qs + (size_t)row * (size_t)(nb * Q::QS_BYTES), kb, w);
+        const float s = __half2float(__ldg(d + (size_t)row * nb + kb));
+#pragma unroll
+        for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(w[16 * h + i] * s);
+    }
+};
+
+template <bool Q5>
+struct KQuant45 {  // Q4_K, and Q5_K with qh
+    const uint8_t *qs, *qh, *sc, *mn;
+    const float *d, *dmin;
+    static constexpr int UNIT = 64;  // chunk j of superblock s: groups 2j, 2j+1
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const int s = u >> 2, j = u & 3;
+        const size_t sb = (size_t)row * (K >> 8) + s;
+        const uint4* qp = reinterpret_cast<const uint4*>(qs + sb * 128 + 32 * j);
+        const uint4 q0 = __ldg(qp), q1 = __ldg(qp + 1);
+        uint4 h0 = make_uint4(0, 0, 0, 0), h1 = h0;
+        if (Q5) {
+            const uint4* hp = reinterpret_cast<const uint4*>(qh + sb * 32);
+            h0 = __ldg(hp);
+            h1 = __ldg(hp + 1);
+        }
+        const float dd = __ldg(d + sb), dm = __ldg(dmin + sb);
+        const float dl0 = dd * (float)__ldg(sc + sb * 8 + 2 * j);
+        const float dl1 = dd * (float)__ldg(sc + sb * 8 + 2 * j + 1);
+        const float ml0 = dm * (float)__ldg(mn + sb * 8 + 2 * j);
+        const float ml1 = dm * (float)__ldg(mn + sb * 8 + 2 * j + 1);
+        float s0[NB], s1[NB], x0[NB], x1[NB];  // per row: dots and x sums of the two groups
+#pragma unroll
+        for (int b = 0; b < NB; ++b) s0[b] = s1[b] = x0[b] = x1[b] = 0.f;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {  // elements 8v .. 8v+7 of each group
+            float wl[8], wh[8];        // integer values of groups 2j and 2j+1
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                const int l = 8 * v + e;
+                const uint32_t byte = byte_of(l < 16 ? q0 : q1, l & 15);
+                wl[e] = (float)(byte & 0x0fu);
+                wh[e] = (float)(byte >> 4);
+                if (Q5) {
+                    const uint32_t hb = byte_of(l < 16 ? h0 : h1, l & 15);
+                    wl[e] += (float)(((hb >> (2 * j)) & 1u) << 4);
+                    wh[e] += (float)(((hb >> (2 * j + 1)) & 1u) << 4);
+                }
+            }
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                const uint4* xp = reinterpret_cast<const uint4*>(
+                    x + (size_t)b * K + (size_t)s * 256 + 64 * j);
+                float xf[8], xg[8];
+                bf16x8(__ldg(xp + v), xf);      // group 2j
+                bf16x8(__ldg(xp + 4 + v), xg);  // group 2j+1
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    s0[b] = fmaf(wl[e], xf[e], s0[b]);
+                    x0[b] += xf[e];
+                    s1[b] = fmaf(wh[e], xg[e], s1[b]);
+                    x1[b] += xg[e];
+                }
+            }
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+            acc[b] += dl0 * s0[b] - ml0 * x0[b] + dl1 * s1[b] - ml1 * x1[b];
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const int r = k0 & 255, g = r >> 5, l0 = r & 31;  // l0: 0 or 16
+        const size_t sb = (size_t)row * (K >> 8) + (k0 >> 8);
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + sb * 128 + 32 * (g >> 1) + l0));
+        uint4 h = make_uint4(0, 0, 0, 0);
+        if (Q5) h = __ldg(reinterpret_cast<const uint4*>(qh + sb * 32 + l0));
+        const float dl = __fmul_rn(__ldg(d + sb), (float)__ldg(sc + sb * 8 + g));
+        const float ml = __fmul_rn(__ldg(dmin + sb), (float)__ldg(mn + sb * 8 + g));
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const uint32_t byte = byte_of(q, i);
+            uint32_t qv = (g & 1) ? byte >> 4 : byte & 0x0fu;
+            if (Q5) qv += ((byte_of(h, i) >> g) & 1u) << 4;
+            out[i] = __float2bfloat16(__fsub_rn(__fmul_rn((float)qv, dl), ml));
+        }
+    }
+};
+
+struct KQuant6 {  // Q6_K
+    const uint8_t *ql, *qh;
+    const int8_t* sc;
+    const float* d;
+    static constexpr int UNIT = 64;  // l in [16lq, 16lq+16) of half hh, i = 0..3
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const int s = u >> 2, hh = (u >> 1) & 1, lq = u & 1;
+        const size_t sb = (size_t)row * (K >> 8) + s;
+        const uint8_t* lp = ql + sb * 128 + 64 * hh + 16 * lq;
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(lp));       // ql[l]
+        const uint4 c = __ldg(reinterpret_cast<const uint4*>(lp + 32));  // ql[l+32]
+        const uint4 h = __ldg(reinterpret_cast<const uint4*>(qh + sb * 64 + 32 * hh + 16 * lq));
+        const uint2 sv = __ldg(reinterpret_cast<const uint2*>(sc + sb * 16 + 8 * hh));
+        const float dd = __ldg(d + sb);
+        float ds[4];  // d*sc of the four 16-groups: sc[8hh + 2i + lq]
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint32_t word = i < 2 ? sv.x : sv.y;
+            ds[i] = dd * (float)(int8_t)((word >> (8 * (2 * (i & 1) + lq))) & 0xffu);
+        }
+        float out[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) out[b] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // element l + 32i of the half
+            float w[16];
+#pragma unroll
+            for (int t = 0; t < 16; ++t) {
+                const uint32_t lo = i & 1 ? byte_of(c, t) : byte_of(a, t);
+                const uint32_t q4 = i < 2 ? lo & 0x0fu : lo >> 4;
+                w[t] = (float)((int)(q4 | (((byte_of(h, t) >> (2 * i)) & 3u) << 4)) - 32);
+            }
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                const uint4* xp = reinterpret_cast<const uint4*>(
+                    x + (size_t)b * K + (size_t)s * 256 + 128 * hh + 16 * lq + 32 * i);
+                float xf[8], xg[8];
+                bf16x8(__ldg(xp), xf);
+                bf16x8(__ldg(xp + 1), xg);
+                float si = 0.f;
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    si = fmaf(w[e], xf[e], si);
+                    si = fmaf(w[8 + e], xg[e], si);
+                }
+                out[b] = fmaf(ds[i], si, out[b]);
+            }
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] += out[b];
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const int r = k0 & 255, hh = r >> 7, i = (r >> 5) & 3, l0 = r & 31;  // l0: 0 or 16
+        const size_t sb = (size_t)row * (K >> 8) + (k0 >> 8);
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(ql + sb * 128 + 64 * hh +
+                                                             32 * (i & 1) + l0));
+        const uint4 h = __ldg(reinterpret_cast<const uint4*>(qh + sb * 64 + 32 * hh + l0));
+        const float s = (float)__ldg(sc + sb * 16 + 8 * hh + 2 * i + (l0 >> 4));
+        const float dd = __ldg(d + sb);
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const uint32_t A = byte_of(a, t);
+            const uint32_t lo = i < 2 ? (A & 0x0fu) : (A >> 4);
+            const int q = (int)(lo | (((byte_of(h, t) >> (2 * i)) & 3u) << 4)) - 32;
+            out[t] = __float2bfloat16(__fmul_rn(__fmul_rn((float)q, s), dd));  // (q*sc)*d
+        }
+    }
+};
+
+template <class W, int NB>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
-qmm_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
-         const __half* __restrict__ d, float* __restrict__ y, int N, int K) {
+qmm_gemv(const W w, const __nv_bfloat16* __restrict__ x, float* __restrict__ y, int N, int K) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int row = blockIdx.x * GEMV_WARPS + warp;
     if (row >= N) return;
-    float out[NB];
-    warp_row_dot<Q, NB>(qs, d, row, K, x, lane, out);
+    float acc[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+    const int nu = K / W::UNIT;
+#pragma unroll 2
+    for (int u = lane; u < nu; u += 32) w.template unit_dot<NB>(row, u, x, K, acc);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = warp_sum(acc[b]);
     if (lane == 0) {
 #pragma unroll
-        for (int b = 0; b < NB; ++b) y[(size_t)b * N + row] = out[b];
+        for (int b = 0; b < NB; ++b) y[(size_t)b * N + row] = acc[b];
     }
 }
 
@@ -42,23 +274,10 @@ qmm_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
 constexpr int TM = 64, TN = 64, TK = 32, LDS = TK + 8;  // LDS: bf16 row stride
 constexpr int TILE_THREADS = 128;                       // 4 warps, 32x32 each
 
-// Dequantize elements [16h, 16h+16) of block kb of weight row `row` into
-// bf16 (w = d*(q-8) or d*q, rounded to bf16 like the plain version).
-template <class Q>
-__device__ __forceinline__ void dequant_half(const uint8_t* qs, const __half* d, int row, int K,
-                                             int kb, int h, __nv_bfloat16 out[16]) {
-    const int nb = K >> 5;
-    float w[32];
-    Q::unpack(qs + (size_t)row * (size_t)(nb * Q::QS_BYTES), kb, w);
-    const float s = __half2float(__ldg(d + (size_t)row * nb + kb));
-#pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(w[16 * h + i] * s);
-}
-
-template <class Q>
+template <class W>
 __global__ void __launch_bounds__(TILE_THREADS)
-qmm_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
-          const __half* __restrict__ d, float* __restrict__ y, int B, int N, int K) {
+qmm_tiled(const W w, const __nv_bfloat16* __restrict__ x, float* __restrict__ y, int B, int N,
+          int K) {
     using namespace nvcuda;
     __shared__ __align__(32) __nv_bfloat16 xs[TM * LDS];
     __shared__ __align__(32) __nv_bfloat16 ws[TN * LDS];
@@ -67,7 +286,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
     const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
     const int warp = threadIdx.x >> 5;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const int r = threadIdx.x >> 1, h = threadIdx.x & 1;  // loader: row, half-block
+    const int r = threadIdx.x >> 1, h = threadIdx.x & 1;  // loader: row, half of the K step
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -92,7 +311,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
         {  // weights: dequantized bf16 of row n0+r (zeros past N)
             __nv_bfloat16 wv[16];
             if (n0 + r < N) {
-                dequant_half<Q>(qs, d, n0 + r, K, kb, h, wv);
+                w.dequant16(n0 + r, K, kb * 32 + h * 16, wv);
             } else {
 #pragma unroll
                 for (int i = 0; i < 16; ++i) wv[i] = __float2bfloat16(0.f);
@@ -131,33 +350,29 @@ qmm_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
     }
 }
 
-template <class Q, int NB>
-void launch_gemv(const void* x, const void* qs, const void* d, void* y, int N, int K,
-                 cudaStream_t st) {
+template <class W, int NB>
+void launch_gemv(const W& w, const void* x, void* y, int N, int K, cudaStream_t st) {
     const dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS);
-    qmm_gemv<Q, NB><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-        static_cast<const __half*>(d), static_cast<float*>(y), N, K);
+    qmm_gemv<W, NB><<<grid, GEMV_WARPS * 32, 0, st>>>(
+        w, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(y), N, K);
 }
 
-template <class Q>
-int qmm_launch(const void* x, const void* qs, const void* d, void* y, int B, int N, int K,
-               void* stream) {
+template <class W>
+int qmm_launch(const W& w, const void* x, void* y, int B, int N, int K, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (B) {
-        case 1: launch_gemv<Q, 1>(x, qs, d, y, N, K, st); break;
-        case 2: launch_gemv<Q, 2>(x, qs, d, y, N, K, st); break;
-        case 3: launch_gemv<Q, 3>(x, qs, d, y, N, K, st); break;
-        case 4: launch_gemv<Q, 4>(x, qs, d, y, N, K, st); break;
-        case 5: launch_gemv<Q, 5>(x, qs, d, y, N, K, st); break;
-        case 6: launch_gemv<Q, 6>(x, qs, d, y, N, K, st); break;
-        case 7: launch_gemv<Q, 7>(x, qs, d, y, N, K, st); break;
-        case 8: launch_gemv<Q, 8>(x, qs, d, y, N, K, st); break;
+        case 1: launch_gemv<W, 1>(w, x, y, N, K, st); break;
+        case 2: launch_gemv<W, 2>(w, x, y, N, K, st); break;
+        case 3: launch_gemv<W, 3>(w, x, y, N, K, st); break;
+        case 4: launch_gemv<W, 4>(w, x, y, N, K, st); break;
+        case 5: launch_gemv<W, 5>(w, x, y, N, K, st); break;
+        case 6: launch_gemv<W, 6>(w, x, y, N, K, st); break;
+        case 7: launch_gemv<W, 7>(w, x, y, N, K, st); break;
+        case 8: launch_gemv<W, 8>(w, x, y, N, K, st); break;
         default: {
             const dim3 grid((N + TN - 1) / TN, (B + TM - 1) / TM);
-            qmm_tiled<Q><<<grid, TILE_THREADS, 0, st>>>(
-                static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-                static_cast<const __half*>(d), static_cast<float*>(y), B, N, K);
+            qmm_tiled<W><<<grid, TILE_THREADS, 0, st>>>(
+                w, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(y), B, N, K);
         }
     }
     return (int)cudaGetLastError();
@@ -165,17 +380,45 @@ int qmm_launch(const void* x, const void* qs, const void* d, void* y, int B, int
 
 }  // namespace
 
-// x bf16 [B,K]; qs u8 [N,K/2] (Q4_0) or i8 [N,K] (Q8_0); d f16 [N,K/32];
-// y f32 [B,N]. K % 32 == 0, every pointer 16-byte aligned (checked by the
-// Python wrapper). Returns cudaGetLastError() after the launch.
+// x bf16 [B,K]; y f32 [B,N]; the weight fields as in the header comment
+// (Q4_0: qs u8 [N,K/2]; Q8_0: qs i8 [N,K]; both d f16 [N,K/32]). K % 32 == 0
+// (K % 256 == 0 for the K-quants), every pointer 16-byte aligned (checked by
+// the Python wrapper). Each returns cudaGetLastError() after the launch.
 KERNELS_API int qmm_q4_0(const void* x, const void* qs, const void* d, void* y, int B, int N,
                          int K, void* stream) {
-    return qmm_launch<Q4_0>(x, qs, d, y, B, N, K, stream);
+    const Legacy<Q4_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_launch(w, x, y, B, N, K, stream);
 }
 
 KERNELS_API int qmm_q8_0(const void* x, const void* qs, const void* d, void* y, int B, int N,
                          int K, void* stream) {
-    return qmm_launch<Q8_0>(x, qs, d, y, B, N, K, stream);
+    const Legacy<Q8_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q4_k(const void* x, const void* qs, const void* sc, const void* mn,
+                         const void* d, const void* dmin, void* y, int B, int N, int K,
+                         void* stream) {
+    const KQuant45<false> w{static_cast<const uint8_t*>(qs), nullptr,
+                            static_cast<const uint8_t*>(sc), static_cast<const uint8_t*>(mn),
+                            static_cast<const float*>(d), static_cast<const float*>(dmin)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q5_k(const void* x, const void* qs, const void* qh, const void* sc,
+                         const void* mn, const void* d, const void* dmin, void* y, int B, int N,
+                         int K, void* stream) {
+    const KQuant45<true> w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(qh),
+                           static_cast<const uint8_t*>(sc), static_cast<const uint8_t*>(mn),
+                           static_cast<const float*>(d), static_cast<const float*>(dmin)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q6_k(const void* x, const void* ql, const void* qh, const void* sc,
+                         const void* d, void* y, int B, int N, int K, void* stream) {
+    const KQuant6 w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
+                    static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
+    return qmm_launch(w, x, y, B, N, K, stream);
 }
 
 KERNELS_API const char* kernels_error_string(int code) {

@@ -16,8 +16,8 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ Wᵀ (ggml_mul_mat semantics, W [N, K] row-major) → f32, with x
     taken as bf16.
 
-    Q4_0 / Q8_0 QTensors go through the hand-written kernels
-    (ops/kernels/qmm.py); a dense weight is a plain bf16 product with f32
+    QTensors (Q4_0, Q8_0, Q4_K, Q5_K, Q6_K) go through the hand-written
+    kernels (ops/kernels/qmm.py); a dense weight is a plain bf16 product with f32
     accumulation."""
     if isinstance(w, QTensor):
         from .kernels.qmm import qmm as qmm_kernel
@@ -31,7 +31,7 @@ def take_rows(w, ids: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:
     dequantizes only those."""
     if isinstance(w, QTensor):
         flat = ids.reshape(-1)
-        rows = dequant_fields(w.kind, w["qs"][flat], w["d"][flat], dtype)
+        rows = dequant_fields(w.kind, {k: a[flat] for k, a in w.arrays.items()}, dtype)
         return rows.reshape(*ids.shape, w.shape[1])
     return w[ids].to(dtype)
 

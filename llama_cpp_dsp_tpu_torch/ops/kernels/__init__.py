@@ -11,6 +11,9 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {
     "qmm_q4_0": 0,
     "qmm_q8_0": 0,
+    "qmm_q4_k": 0,
+    "qmm_q5_k": 0,
+    "qmm_q6_k": 0,
     "flash_decode": 0,
     "flash_decode_q8": 0,
     "flash_decode_paged": 0,

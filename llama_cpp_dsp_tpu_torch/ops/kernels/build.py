@@ -33,6 +33,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "qmm_q4_0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qmm_q8_0": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "qmm_q4_k": [_P] * 7 + [_I] * 3 + [_P],  # x, qs, sc, mn, d, dmin, y
+    "qmm_q5_k": [_P] * 8 + [_I] * 3 + [_P],  # x, qs, qh, sc, mn, d, dmin, y
+    "qmm_q6_k": [_P] * 6 + [_I] * 3 + [_P],  # x, ql, qh, sc, d, y
     "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     "flash_decode_q8": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "flash_decode_paged": [_P] * 9 + [_I] * 7 + [_F, _F, _P],

@@ -6,10 +6,19 @@ order (no TPU tile transpose): per 2-D weight [N, K], rows contiguous,
 - kind=Q4_0 : qs uint8 [N, K/2], d f16 [N, K/32]   (x = d*(q-8); byte j of a
               32-block holds element j in its low and j+16 in its high nibble)
 - kind=Q8_0 : qs int8 [N, K],    d f16 [N, K/32]   (x = d*q)
+- kind=Q4_K : qs u8 [N, K/2], sc,mn u8 [N, S, 8], d,dmin f32 [N, S]
+              (S = K/256; x = (d*sc)*q - dmin*mn over 32-element groups; in
+              each 64-element chunk byte l holds element l in its low and
+              l+32 in its high nibble; the 6-bit scales are unpacked here)
+- kind=Q5_K : the Q4_K fields + qh u8 [N, S, 32] (bit g of byte l is the
+              fifth bit of element 32g+l)
+- kind=Q6_K : ql u8 [N, K/2], qh u8 [N, K/4], sc i8 [N, S, 16], d f32 [N, S]
+              (x = d*sc*(q-32) over 16-element groups)
 - F32 / F16 / BF16: a dense tensor.
 
-Other kinds raise NotImplementedError: they are queued in ROADMAP.md
-(queue B, row B1, the other qmm bodies).
+These are the JAX package's field names, dtypes and shapes. Other kinds
+raise NotImplementedError: they are queued in ROADMAP.md (queue B, row B1,
+the other qmm bodies).
 """
 
 from __future__ import annotations
@@ -19,11 +28,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..gguf.constants import GGMLType
-from ..quant.blocks import _blocks
+from ..gguf.constants import QK_K, GGMLType
+from ..quant.blocks import _blocks, _f32, unpack_scale_min_k4
 
 # GGUF kinds with a packed layout (and a hand-written qmm kernel) in the port
-PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q8_0)
+PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
 @dataclass
@@ -71,9 +80,32 @@ def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
             "qs": _t(b["qs"].reshape(n, k // 2)),
             "d": _t(b["d"].reshape(n, k // 32)),
         })
+    if kind in (GGMLType.Q4_K, GGMLType.Q5_K):
+        b = _blocks(raw, kind)
+        s = k // QK_K
+        sc, mn = unpack_scale_min_k4(b["scales"])
+        out = {
+            "qs": _t(b["qs"].reshape(n, k // 2)),
+            "sc": _t(sc.reshape(n, s, 8)),
+            "mn": _t(mn.reshape(n, s, 8)),
+            "d": _t(_f32(b["d"]).reshape(n, s)),
+            "dmin": _t(_f32(b["dmin"]).reshape(n, s)),
+        }
+        if kind == GGMLType.Q5_K:
+            out["qh"] = _t(b["qh"].reshape(n, s, 32))
+        return QTensor(kind, (n, k), out)
+    if kind == GGMLType.Q6_K:
+        b = _blocks(raw, kind)
+        s = k // QK_K
+        return QTensor(kind, (n, k), {
+            "ql": _t(b["ql"].reshape(n, k // 2)),
+            "qh": _t(b["qh"].reshape(n, k // 4)),
+            "sc": _t(b["scales"].reshape(n, s, 16)),
+            "d": _t(_f32(b["d"]).reshape(n, s)),
+        })
     raise NotImplementedError(
-        f"repack {kind.name}: only Q4_0 and Q8_0 are ported (ROADMAP.md "
-        "queue B, row B1)")
+        f"repack {kind.name}: only {', '.join(k.name for k in PACKED_KINDS)} are ported "
+        "(ROADMAP.md queue B, row B1)")
 
 
 def _bf16(raw: np.ndarray, np_shape) -> torch.Tensor:

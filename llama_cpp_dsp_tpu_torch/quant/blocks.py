@@ -1,8 +1,9 @@
-"""GGUF block records of the kinds this port runs (Q4_0, Q8_0).
+"""GGUF block records of the kinds this port runs (Q4_0, Q8_0, Q4_K, Q5_K,
+Q6_K).
 
-The block dtypes and the `_blocks` helper of the JAX package's
-quant/ref_numpy.py, cut down to the kinds on the port's path; the layouts
-match ggml-common.h.
+The block dtypes, `_blocks`, `_f32` and `unpack_scale_min_k4` of the JAX
+package's quant/ref_numpy.py, cut down to the kinds on the port's path; the
+layouts match ggml-common.h.
 """
 
 from __future__ import annotations
@@ -14,6 +15,13 @@ from ..gguf.constants import GGML_TYPE_TRAITS, GGMLType
 DT = {
     GGMLType.Q4_0: np.dtype([("d", "<f2"), ("qs", "u1", (16,))]),
     GGMLType.Q8_0: np.dtype([("d", "<f2"), ("qs", "i1", (32,))]),
+    GGMLType.Q4_K: np.dtype(
+        [("d", "<f2"), ("dmin", "<f2"), ("scales", "u1", (12,)), ("qs", "u1", (128,))]),
+    GGMLType.Q5_K: np.dtype(
+        [("d", "<f2"), ("dmin", "<f2"), ("scales", "u1", (12,)), ("qh", "u1", (32,)),
+         ("qs", "u1", (128,))]),
+    GGMLType.Q6_K: np.dtype(
+        [("ql", "u1", (128,)), ("qh", "u1", (64,)), ("scales", "i1", (16,)), ("d", "<f2")]),
 }
 
 
@@ -25,3 +33,20 @@ def _blocks(raw: np.ndarray, t: GGMLType) -> np.ndarray:
     raw = np.ascontiguousarray(raw).reshape(-1).view(np.uint8)
     assert raw.nbytes % dt.itemsize == 0
     return raw.view(dt)
+
+
+def _f32(h: np.ndarray) -> np.ndarray:
+    return h.astype(np.float32)
+
+
+def unpack_scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Unpack 12-byte 6-bit scale/min pairs → (sc[nb, 8], m[nb, 8]) uint8
+    (get_scale_min_k4, reference ggml-quants.c:631)."""
+    q = scales.astype(np.uint8)
+    sc = np.empty(q.shape[:-1] + (8,), dtype=np.uint8)
+    m = np.empty_like(sc)
+    sc[..., :4] = q[..., 0:4] & 63
+    m[..., :4] = q[..., 4:8] & 63
+    sc[..., 4:] = (q[..., 8:12] & 0x0F) | ((q[..., 0:4] >> 6) << 4)
+    m[..., 4:] = (q[..., 8:12] >> 4) | ((q[..., 4:8] >> 6) << 4)
+    return sc, m

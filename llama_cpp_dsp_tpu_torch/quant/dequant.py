@@ -1,8 +1,9 @@
 """Torch dequantization of QTensors (counterpart of quant/jax_dequant.py).
 
-Bit-exact with the reference dequantize_row_q4_0 / _q8_0 (the JAX
-package's quant/ref_numpy.py): the products are taken in f32 in the same
-order. Used by the plain qmm version and the embedding row gather.
+Bit-exact with the reference dequantize_row_q4_0 / _q8_0 / _q4_K / _q5_K /
+_q6_K (the JAX package's quant/ref_numpy.py): the products are taken in f32
+in the same order. Used by the plain qmm version and the embedding row
+gather.
 """
 
 from __future__ import annotations
@@ -12,23 +13,54 @@ import torch
 from ..gguf.constants import GGMLType
 
 
-def dequant_fields(kind: GGMLType, qs: torch.Tensor, d: torch.Tensor,
+def _nibbles_k(qs: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """K-quant 4-bit field [N, S*128] → int32 [N, S, 8, 32]: in each
+    64-element chunk j, byte l's low nibble is element l of group 2j and its
+    high nibble element l of group 2j+1."""
+    b = qs.reshape(n, s, 4, 1, 32)
+    return torch.cat([b & 0x0F, b >> 4], dim=3).reshape(n, s, 8, 32).to(torch.int32)
+
+
+def dequant_fields(kind: GGMLType, f: dict[str, torch.Tensor],
                    dtype=torch.float32) -> torch.Tensor:
-    """Packed fields of rows [N, ...] → dense [N, K]."""
-    n = qs.shape[0]
-    g = d.shape[-1]
-    df = d.float()[:, :, None]
-    if kind == GGMLType.Q8_0:
-        y = qs.float().reshape(n, g, 32) * df
-    elif kind == GGMLType.Q4_0:
-        b = qs.reshape(n, g, 16)
-        q = torch.cat([b & 0x0F, b >> 4], dim=-1).to(torch.int32) - 8
-        y = q.float() * df
-    else:
-        raise NotImplementedError(f"dequant {kind.name} (ROADMAP.md queue B, B1)")
-    return y.reshape(n, g * 32).to(dtype)
+    """Packed fields of rows [N, ...] (ops/qtensor.py names) → dense [N, K]."""
+    if kind in (GGMLType.Q8_0, GGMLType.Q4_0):
+        qs, d = f["qs"], f["d"]
+        n, g = qs.shape[0], d.shape[-1]
+        df = d.float()[:, :, None]
+        if kind == GGMLType.Q8_0:
+            y = qs.float().reshape(n, g, 32) * df
+        else:
+            b = qs.reshape(n, g, 16)
+            q = torch.cat([b & 0x0F, b >> 4], dim=-1).to(torch.int32) - 8
+            y = q.float() * df
+        return y.reshape(n, g * 32).to(dtype)
+    if kind in (GGMLType.Q4_K, GGMLType.Q5_K):
+        n, s = f["d"].shape
+        q = _nibbles_k(f["qs"], n, s)
+        if kind == GGMLType.Q5_K:
+            g = torch.arange(8, dtype=torch.uint8, device=q.device)
+            hbit = (f["qh"][:, :, None, :] >> g[None, None, :, None]) & 1  # [N,S,8,32]
+            q = q + hbit.to(torch.int32) * 16
+        dl = f["d"][:, :, None] * f["sc"].float()  # effective scale per 32-group
+        ml = f["dmin"][:, :, None] * f["mn"].float()
+        y = q.float() * dl[..., None] - ml[..., None]
+        return y.reshape(n, s * 256).to(dtype)
+    if kind == GGMLType.Q6_K:
+        n, s = f["d"].shape
+        ql = f["ql"].reshape(n, s, 2, 64).to(torch.int32)  # per 128-element half
+        qh = f["qh"].reshape(n, s, 2, 32).to(torch.int32)
+        lo, hi = ql[..., :32], ql[..., 32:]
+        q = torch.cat([(lo & 0x0F) | ((qh & 3) << 4),
+                       (hi & 0x0F) | (((qh >> 2) & 3) << 4),
+                       (lo >> 4) | (((qh >> 4) & 3) << 4),
+                       (hi >> 4) | (((qh >> 6) & 3) << 4)], dim=-1) - 32  # [N,S,2,128]
+        q = q.reshape(n, s, 16, 16).float()
+        y = q * f["sc"].float()[..., None] * f["d"][:, :, None, None]
+        return y.reshape(n, s * 256).to(dtype)
+    raise NotImplementedError(f"dequant {kind.name} (ROADMAP.md queue B, B1)")
 
 
 def dequant(qt, dtype=torch.float32) -> torch.Tensor:
     """QTensor (ops/qtensor.py) → dense [N, K]."""
-    return dequant_fields(qt.kind, qt["qs"], qt["d"], dtype)
+    return dequant_fields(qt.kind, qt.arrays, dtype)

@@ -1,17 +1,19 @@
-"""Tokenizer facade: special-token partitioning + the SPM session.
+"""Tokenizer facade: special-token partitioning + the SPM and BPE sessions.
 
 Counterpart of the JAX package's tokenizer/__init__.py (reference
 src/llama-vocab.cpp llama_vocab::tokenize :2360-2520 and
-tokenizer_st_partition :1311+), for the llama SPM vocab. The BPE, WPM, UGM
-and RWKV sessions are queued in ROADMAP.md (queue A, slice 3).
+tokenizer_st_partition :1311+), for the llama SPM and gpt2 byte-level BPE
+vocabs. The WPM, UGM and RWKV sessions are queued in ROADMAP.md (queue A,
+item A3).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .bpe import BpeTokenizer
 from .spm import SpmTokenizer, escape_whitespace, unescape_whitespace
-from .vocab import TOKEN_NULL, TokenAttr, Vocab, VocabType
+from .vocab import TOKEN_NULL, TokenAttr, Vocab, VocabType, bpe_byte_decode
 
 __all__ = ["Tokenizer", "Vocab", "VocabType", "TokenAttr"]
 
@@ -34,11 +36,14 @@ def _isspace_c(ch: str) -> bool:
 class Tokenizer:
     def __init__(self, vocab: Vocab):
         self.vocab = vocab
-        if vocab.vocab_type != VocabType.SPM:
+        if vocab.vocab_type == VocabType.SPM:
+            self._spm = SpmTokenizer(vocab)
+        elif vocab.vocab_type == VocabType.BPE:
+            self._bpe = BpeTokenizer(vocab)
+        else:
             raise NotImplementedError(
-                f"tokenizer type {vocab.vocab_type}: only SPM is ported "
-                "(ROADMAP.md queue A, slice 3)")
-        self._spm = SpmTokenizer(vocab)
+                f"tokenizer type {vocab.vocab_type}: only SPM and BPE are ported "
+                "(ROADMAP.md queue A, item A3)")
 
     def _partition(self, text: str, parse_special: bool) -> list[_Fragment]:
         fragments = [_Fragment(text=text)]
@@ -80,13 +85,15 @@ class Tokenizer:
         vocab = self.vocab
         output: list[int] = []
         fragments = self._partition(text, parse_special) if text else []
-        is_prev_special = True  # prefix the first raw fragment with a space
+        is_prev_special = True  # SPM: prefix the first raw fragment with a space
         if add_special and vocab.add_bos:
             output.append(vocab.bos_id)
         for frag in fragments:
             if frag.is_token:
                 output.append(frag.token)
                 is_prev_special = True
+            elif vocab.vocab_type == VocabType.BPE:
+                self._bpe.tokenize(frag.text, output)
             else:
                 t = frag.text
                 if vocab.add_space_prefix and is_prev_special:
@@ -104,13 +111,15 @@ class Tokenizer:
         text = vocab.tokens[tid]
         if attr & (TokenAttr.CONTROL | TokenAttr.UNKNOWN):
             return text.encode("utf-8") if special else b""
+        if vocab.vocab_type == VocabType.BPE:
+            return bpe_byte_decode(text)
         if attr & TokenAttr.BYTE:
             return bytes([int(text[3:5], 16)]) if text.startswith("<0x") else text.encode()
         return unescape_whitespace(text).encode("utf-8")
 
     def decode(self, tokens: list[int], *, remove_special: bool = False,
                unparse_special: bool = False) -> str:
-        """reference llama_vocab::detokenize (llama-vocab.cpp:3000+), SPM."""
+        """reference llama_vocab::detokenize (llama-vocab.cpp:3000+)."""
         vocab = self.vocab
         toks = list(tokens)
         if remove_special and vocab.add_bos and toks and toks[0] == vocab.bos_id:
@@ -120,7 +129,12 @@ class Tokenizer:
         raw = b"".join(self.token_to_piece(t, special=unparse_special) for t in toks)
         text = raw.decode("utf-8", errors="replace")
         # spm adds a leading space on encode; strip it back off
-        if text.startswith(" ") and not (unparse_special
-                                         and vocab.attrs[toks[0]] & TokenAttr.CONTROL):
+        if (vocab.vocab_type == VocabType.SPM and text.startswith(" ")
+                and not (unparse_special and vocab.is_control(toks[0]))):
             text = text[1:]
+        if vocab.clean_spaces:
+            # minimal clean_spaces: collapse the artifacts the reference cleans
+            for a, b in ((" .", "."), (" ,", ","), (" !", "!"), (" ?", "?"), (" '", "'"),
+                         (" n't", "n't")):
+                text = text.replace(a, b)
         return text

@@ -1,10 +1,13 @@
-"""Synthetic models: random packed Q4_0 / Q8_0 blocks at real shapes.
+"""Synthetic models: random packed blocks at real shapes.
 
 Counterpart of the JAX package's tools/synth.py (`CONFIGS`,
 `synth_qtensor`), plus `write_synth_gguf`, which writes a whole model as a
-GGUF file so the port's loader and CLI run on it. The blocks are random bits
-with small finite f16 scales — no quantizer runs — so a full-width 7B file
-is written in seconds; decode cost does not depend on weight values.
+GGUF file so the port's loader, CLI and server run on it. The blocks are
+random bits with small finite f16 scales — no quantizer runs — so a
+full-width 8B file is written in seconds; decode cost does not depend on
+weight values. The ftype picks each tensor's kind: every matrix Q4_0 or
+Q8_0, or llama.cpp's Q4_K_M / Q5_K_M mix (`tensor_type`). The vocab is a
+synthetic SPM one, or a llama-3-style byte-level BPE one ("llama-bpe").
 """
 
 from __future__ import annotations
@@ -48,11 +51,35 @@ CONFIGS = {
 }
 
 
+# A block's d is uniform in [0, D_MAX): for Q4_0 the dequantized weights
+# then have an rms of about 0.054, and the K-quant maxima give the same rms
+# over random 6-bit scales or random int8 scales (Q6_K).
+_D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 0.02, GGMLType.Q4_K: 5.5e-4,
+          GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5}
+# K-quant mins: each group's 6-bit min equals its scale and dmin = d·mean(q),
+# so every 32-element group d·sc·q − dmin·mn is zero-mean, as Q4_0's q − 8
+# is. Random mins would give each group a common offset; the offsets of two
+# matrices line up along K, and 32 layers of them make the activations and
+# attention scores far larger than a real model's.
+_DMIN_PER_D = {GGMLType.Q4_K: 7.5, GGMLType.Q5_K: 15.5}
+
+
 def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, int]) -> np.ndarray:
-    """Random GGUF blocks (uint8) for a [N, K] tensor, block scales in [0, 0.02)."""
+    """Random GGUF blocks (uint8) for a [N, K] tensor: random bits with the
+    f16 block scales set small and finite (`_D_MAX`, `_DMIN_PER_D`)."""
     n_blocks = shape[0] * shape[1] // GGML_TYPE_TRAITS[kind].block_size
     raw = rng.integers(0, 256, size=n_blocks * DT[kind].itemsize, dtype=np.uint8)
-    raw.view(DT[kind])["d"] = (rng.random(n_blocks, dtype=np.float32) * 0.02).astype(np.float16)
+    blocks = raw.view(DT[kind])
+    d = rng.random(n_blocks, dtype=np.float32) * np.float32(_D_MAX[kind])
+    blocks["d"] = d.astype(np.float16)
+    if kind in _DMIN_PER_D:
+        blocks["dmin"] = (d * np.float32(_DMIN_PER_D[kind])).astype(np.float16)
+        # get_scale_min_k4 packing: bytes 4-7 hold the mins of groups 0-3
+        # (and the top bits of 4-7), bytes 8-11 the low bits of groups 4-7
+        # (scale in the low nibble, min in the high one)
+        sc = blocks["scales"]
+        sc[:, 4:8] = sc[:, 0:4]
+        sc[:, 8:12] = (sc[:, 8:12] & 0x0F) * 0x11
     return raw
 
 
@@ -74,10 +101,91 @@ def _spm_vocab(n_vocab: int) -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, types[:n_vocab]
 
 
-def write_synth_gguf(path: str, cfg: LlamaConfig, kind: GGMLType, *, seed: int = 0) -> None:
-    """Write `cfg` as a GGUF of random `kind` blocks (every matrix, the
-    embedding and the LM head included), f32 norm weights of ones and a
-    synthetic SPM vocab."""
+# llama-3's chat template (Meta-Llama-3-8B-Instruct tokenizer_config.json)
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}"
+    "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{% endif %}")
+N_CONTROL = 256  # llama-3's control tokens: the last 256 ids (128000.. at full size)
+
+
+def llama_bpe_vocab(n_vocab: int) -> dict:
+    """A llama-3-style byte-level BPE vocab of n_vocab tokens: the 256
+    byte-alphabet tokens, one token per merge (Ġ+letter, letter pairs,
+    Ġ+letter+lowercase, digit pairs; as many as fit), filler words, then the
+    256 control tokens (<|begin_of_text|> first, <|eot_id|> the tenth) in
+    the last ids. Returns the tokenizer KVs."""
+    from ..tokenizer.vocab import byte_to_unicode_map
+
+    alpha = [byte_to_unicode_map()[b] for b in range(256)]
+    lower = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    letters = lower + [c.upper() for c in lower]
+    digits = [str(i) for i in range(10)]
+    pairs = ([("Ġ", c) for c in letters] + [(a, b) for a in lower for b in lower]
+             + [("Ġ" + a, b) for a in letters for b in lower]
+             + [(a, b) for a in digits for b in digits])
+    n_merges = min(len(pairs), n_vocab - 256 - N_CONTROL)
+    if n_merges < 0:
+        raise ValueError(f"a llama-bpe vocab needs at least {256 + N_CONTROL} tokens")
+    merges = [f"{a} {b}" for a, b in pairs[:n_merges]]
+    tokens = alpha + [a + b for a, b in pairs[:n_merges]]
+    tokens += [f"Ġw{i}" for i in range(n_vocab - N_CONTROL - len(tokens))]
+    control = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+               "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+               "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+               "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+    control += [f"<|reserved_special_token_{i}|>" for i in range(3, 3 + N_CONTROL - len(control))]
+    first = len(tokens)
+    tokens += control
+    return {
+        "tokenizer.ggml.model": "gpt2",
+        "tokenizer.ggml.pre": "llama-bpe",
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.token_type": [1] * first + [3] * N_CONTROL,  # NORMAL, CONTROL
+        "tokenizer.ggml.merges": merges,
+        "tokenizer.ggml.bos_token_id": first,  # <|begin_of_text|>
+        "tokenizer.ggml.eos_token_id": first + 1,  # <|end_of_text|>
+        "tokenizer.ggml.eot_token_id": first + 9,  # <|eot_id|>
+        "tokenizer.chat_template": LLAMA3_CHAT_TEMPLATE,
+    }
+
+
+def use_more_bits(i_layer: int, n_layers: int) -> bool:
+    """llama-quant.cpp:227 (the JAX package's tools/quantize.py:91)."""
+    return (i_layer < n_layers // 8 or i_layer >= 7 * n_layers // 8
+            or (i_layer - n_layers // 8) % 3 == 2)
+
+
+FTYPES = ("Q4_0", "Q8_0", "Q4_K_M", "Q5_K_M")
+
+
+def tensor_type(ftype: str, name: str, n_layers: int) -> GGMLType:
+    """The kind of tensor `name` in a file of `ftype`. Q4_0 / Q8_0: every
+    matrix that kind. Q4_K_M / Q5_K_M: llama_tensor_get_type's rows for a
+    dense llama with an output tensor (the JAX package's
+    tools/quantize.py:121-228): the LM head Q6_K, attn_v and ffn_down Q6_K in
+    the use_more_bits layers, the rest Q4_K / Q5_K."""
+    if ftype in ("Q4_0", "Q8_0"):
+        return GGMLType[ftype]
+    if ftype not in FTYPES:
+        raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    if name.startswith("blk.") and name.endswith(("attn_v.weight", "ffn_down.weight")):
+        if use_more_bits(int(name.split(".")[1]), n_layers):
+            return GGMLType.Q6_K
+    return GGMLType.Q4_K if ftype == "Q4_K_M" else GGMLType.Q5_K
+
+
+def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
+                     vocab: str = "spm") -> None:
+    """Write `cfg` as a GGUF of random blocks whose kinds follow `ftype`
+    (`tensor_type`: for Q4_0 / Q8_0 every matrix, the embedding and the LM
+    head included), f32 norm weights of ones and a synthetic vocab: "spm",
+    or "llama-bpe" (`llama_bpe_vocab`)."""
     rng = np.random.default_rng(seed)
     arch = cfg.arch
     w = GGUFWriter(path, arch)
@@ -91,13 +199,22 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, kind: GGMLType, *, seed: int =
     w.add_float32(f"{arch}.rope.freq_base", cfg.rope.freq_base)
     w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
     w.add_uint32(f"{arch}.vocab_size", cfg.n_vocab)
-    tokens, scores, types = _spm_vocab(cfg.n_vocab)
-    w.add_kv("tokenizer.ggml.model", "llama")
-    w.add_kv("tokenizer.ggml.tokens", tokens)
-    w.add_kv("tokenizer.ggml.scores", scores)
-    w.add_kv("tokenizer.ggml.token_type", types)
+    if vocab == "llama-bpe":
+        for key, val in llama_bpe_vocab(cfg.n_vocab).items():
+            w.add_kv(key, val)
+    elif vocab == "spm":
+        tokens, scores, types = _spm_vocab(cfg.n_vocab)
+        w.add_kv("tokenizer.ggml.model", "llama")
+        w.add_kv("tokenizer.ggml.tokens", tokens)
+        w.add_kv("tokenizer.ggml.scores", scores)
+        w.add_kv("tokenizer.ggml.token_type", types)
+    else:
+        raise ValueError(f"vocab {vocab!r}: 'spm' or 'llama-bpe'")
 
     def add_q(name: str, n: int, k: int) -> None:
+        kind = tensor_type(ftype, name, cfg.n_layers)
+        if k % GGML_TYPE_TRAITS[kind].block_size:
+            raise ValueError(f"{name}: K={k} is not a multiple of {kind.name}'s block")
         w.add_tensor(name, synth_raw(rng, kind, (n, k)), ggml_type=kind, ne_shape=(k, n))
 
     c, hd = cfg.n_embd, cfg.head_dim

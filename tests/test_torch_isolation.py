@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package (nor the JAX server's aiohttp and jinja2), its entry points refuse
+package (nor the JAX server's aiohttp and jinja2, nor `regex` and
+`ml_dtypes`, which the machine with the card lacks), its entry points refuse
 to fall back to the CPU silently, and its kernel wrappers take the plain
 versions only for CPU tensors."""
 
@@ -25,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _BLOCKER = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "llama_cpp_dsp_tpu", "aiohttp", "jinja2")
+BLOCKED = ("jax", "jaxlib", "llama_cpp_dsp_tpu", "aiohttp", "jinja2", "regex", "ml_dtypes")
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -51,11 +52,23 @@ def test_port_imports_with_jax_blocked():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        # the BPE tokenizer (stdlib re) and the K-quant repack and dequant run
+        import numpy as np
+        from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
+        from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
+        from llama_cpp_dsp_tpu_torch.tokenizer import Tokenizer, Vocab
+        from llama_cpp_dsp_tpu_torch.tools.synth import llama_bpe_vocab, synth_qtensor
+        tok = Tokenizer(Vocab.from_gguf_kv(llama_bpe_vocab(1024)))
+        ids = tok.encode("<|begin_of_text|>Hello, wörld 123!", parse_special=True)
+        assert ids[:2] == [tok.vocab.bos_id] * 2 and tok.decode(ids) == "Hello, wörld 123!"
+        rng = np.random.default_rng(0)
+        for kind in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
+            assert dequant(synth_qtensor(rng, kind, (4, 512))).isfinite().all()
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 32
+    assert int(res.stdout.split()[-1]) >= 34
 
 
 def test_chip_smoke_refuses_without_card_or_port(tmp_path):
@@ -87,7 +100,7 @@ def test_entry_points_raise_without_gpu(tmp_path):
     cfg = LlamaConfig(arch="llama", n_layers=1, n_embd=64, n_heads=2, n_kv_heads=2,
                       head_dim=32, n_ff=128, n_vocab=300, n_ctx_train=64,
                       rope=RopeParams(n_dims=32))
-    write_synth_gguf(path, cfg, GGMLType.Q8_0)
+    write_synth_gguf(path, cfg, "Q8_0")
     model = load_model(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaContext(model)
@@ -105,9 +118,9 @@ def test_wrappers_take_plain_version_on_cpu():
     rng = np.random.default_rng(0)
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
     before = dict(LAUNCHES)
-    for kind in (GGMLType.Q4_0, GGMLType.Q8_0):
-        w = synth_qtensor(rng, kind, (64, 128))
-        x = t(3, 128)
+    for kind in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
+        w = synth_qtensor(rng, kind, (64, 256))
+        x = t(3, 256)
         assert torch.equal(qmm(x, w), qmm_plain(x, w))
     q = t(2, 4, 128)
     k = t(2, 2, 16, 128).to(torch.bfloat16)

@@ -2,9 +2,11 @@
 
 Tiny GGUFs from build_tiny_llama go through both loaders, both forwards
 (prefill T>1 and decode T=1), both LlamaContext.generate loops and both
-CLIs. The JAX side runs its CPU path (XLA dequant-matmul, plain attention);
-the port runs its kernels' plain versions (fused decode attention and flash
-decode at head_dim 128).
+CLIs. The Q4_K_M model is build_tiny_llama's F32 model through the JAX
+package's quantize_model, so layer 1's attn_v and ffn_down and the LM head
+are Q6_K and the rest Q4_K. The JAX side runs its CPU path (XLA
+dequant-matmul, plain attention); the port runs its kernels' plain versions
+(fused decode attention and flash decode at head_dim 128).
 
 Tolerance: logits within 2e-2 of the JAX logits relative to their max
 magnitude (bf16 activations; the two frameworks round at the same points
@@ -20,13 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from llama_cpp_dsp_tpu.gguf.constants import GGMLType
+from llama_cpp_dsp_tpu.gguf.constants import FType, GGMLType
 from llama_cpp_dsp_tpu.models.llama import forward as jax_forward
 from llama_cpp_dsp_tpu.runtime.context import LlamaContext as JaxContext
 from llama_cpp_dsp_tpu.runtime.kv_cache import KVCache as JaxKVCache
 from llama_cpp_dsp_tpu.runtime.kv_cache import causal_mask as jax_causal_mask
 from llama_cpp_dsp_tpu.runtime.loader import load_model as jax_load_model
 from llama_cpp_dsp_tpu.runtime.sampling import make_chain as jax_make_chain
+from llama_cpp_dsp_tpu.tools.quantize import quantize_model
 from llama_cpp_dsp_tpu_torch.models.llama import forward
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
@@ -41,7 +44,10 @@ MODELS = {
     "q8_0": dict(qtype=GGMLType.Q8_0),
     # head_dim 128: the fused (Q4_0) and flash decode paths engage
     "q4_0_d128": dict(qtype=GGMLType.Q4_0, n_embd=256, n_heads=2, n_kv_heads=2),
+    # F32, then JAX quantize_model to Q4_K_M; head_dim 128 with GQA: flash decode
+    "q4_k_m": dict(qtype=GGMLType.F32, n_embd=256, n_ff=512, n_heads=2, n_kv_heads=1),
 }
+KQUANT = {"q4_k_m": FType.MOSTLY_Q4_K_M}
 LOGIT_RTOL = 2e-2
 
 
@@ -51,8 +57,26 @@ def gguf_paths(tmp_path_factory):
     paths = {}
     for name, over in MODELS.items():
         paths[name] = str(root / f"{name}.gguf")
-        build_tiny_llama(paths[name], seed=3, **over)
+        if name in KQUANT:
+            build_tiny_llama(str(root / f"{name}-f32.gguf"), seed=3, **over)
+            quantize_model(str(root / f"{name}-f32.gguf"), paths[name], KQUANT[name])
+        else:
+            build_tiny_llama(paths[name], seed=3, **over)
     return paths
+
+
+def test_q4_k_m_mix(gguf_paths):
+    params = load_model(gguf_paths["q4_k_m"]).params
+    kinds = [{k: w.kind for k, w in layer.items() if isinstance(w, QTensor)}
+             for layer in params["layers"]]
+    assert kinds[0] == {k: GGMLType.Q4_K for k in kinds[0]} and len(kinds[0]) == 7
+    assert kinds[1]["attn_v"] == kinds[1]["ffn_down"] == GGMLType.Q6_K
+    assert kinds[1]["attn_q"] == kinds[1]["ffn_up"] == GGMLType.Q4_K
+    assert params["output"].kind == GGMLType.Q6_K and params["token_embd"].kind == GGMLType.Q4_K
+    fused = convert_params_to_kernel(params)["layers"]
+    # q|k|v fuse only where the three share a kind (as JAX's concat_qtensors)
+    assert "attn_qkv_fused" in fused[0] and "attn_qkv_fused" not in fused[1]
+    assert all("ffn_gateup_fused" in layer for layer in fused)
 
 
 def _same_tree(a, b):
@@ -158,3 +182,32 @@ def test_cli_bytes_match_jax_cli(gguf_paths, monkeypatch):
             r"[\d.]+ ms \([\d.]+ t/s\) \| compile: [\d.]+ ms")
     assert re.fullmatch(perf, err_t.splitlines()[-1])
     assert re.fullmatch(perf, err_j.splitlines()[-1])
+
+
+def test_synth_llama_bpe_q4_k_m_cli_matches_jax(tmp_path, monkeypatch):
+    """write_synth_gguf's Q4_K_M mix with the llama-bpe vocab: the same
+    token ids through both loaders' tokenizers, the same CLI bytes."""
+    from llama_cpp_dsp_tpu.tools.cli import main as jax_main
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools.cli import main
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    monkeypatch.setenv("LLAMA_TPU_DECODE_CHUNK", "1")
+    path = str(tmp_path / "synth-q4_k_m.gguf")
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=2048, n_ctx_train=256,
+                      rope=RopeParams(n_dims=128, freq_base=500000.0))
+    write_synth_gguf(path, cfg, "Q4_K_M", seed=2, vocab="llama-bpe")
+    ours, theirs = load_model(path), jax_load_model(path)
+    assert ours.params["output"].kind == GGMLType.Q6_K
+    prompt = "<|start_header_id|>user<|end_header_id|>\n\nHello, world! 123"
+    ids = ours.tokenizer.encode(prompt, add_special=True, parse_special=True)
+    assert ids == theirs.tokenizer.encode(prompt, add_special=True, parse_special=True)
+    assert ids[0] == ours.vocab.bos_id == 2048 - 256
+    args = ["-m", path, "-p", "Hello, world!", "-n", "10", "--temp", "0", "-c", "64",
+            "--device", "cpu"]
+    rc_j, out_j, _ = _run_cli(jax_main, args)
+    rc_t, out_t, _ = _run_cli(main, args)
+    assert rc_j == rc_t == 0
+    assert out_t == out_j and out_t.startswith(b"Hello, world!")

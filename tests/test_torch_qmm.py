@@ -1,5 +1,6 @@
 """The port's qmm (plain version, CPU) against the JAX package's Pallas
-qmm_fused in interpret mode, and the port's dequant against ref_numpy.
+qmm_fused in interpret mode, and the port's repack and dequant against the
+JAX package's repack and ref_numpy, for every kind with a port kernel.
 
 Tolerance: NMSE ≤ 5e-4 against x · exact-f32-dequant(W)ᵀ and against the
 JAX kernel — the reference's MUL_MAT tolerance, as tests/test_pallas_qmm.py
@@ -15,16 +16,17 @@ from llama_cpp_dsp_tpu.gguf import GGMLType
 from llama_cpp_dsp_tpu.ops.pallas.layouts import to_kernel_layout
 from llama_cpp_dsp_tpu.ops.pallas.qmm import qmm_fused
 from llama_cpp_dsp_tpu.ops.qtensor import from_gguf_tensor as jax_from_gguf_tensor
+from llama_cpp_dsp_tpu.ops.qtensor import repack as jax_repack
 from llama_cpp_dsp_tpu.quant import quantize
 from llama_cpp_dsp_tpu.quant.ref_numpy import dequantize
 from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType as TGGMLType
 from llama_cpp_dsp_tpu_torch.ops import take_rows
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
-from llama_cpp_dsp_tpu_torch.ops.qtensor import from_gguf_tensor
+from llama_cpp_dsp_tpu_torch.ops.qtensor import PACKED_KINDS, from_gguf_tensor
 from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
 
-KINDS = [GGMLType.Q4_0, GGMLType.Q8_0]
+KINDS = [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
 NMSE_TOL = 5e-4
 
 
@@ -77,3 +79,20 @@ def test_dequant_bit_exact_with_ref_numpy(kind):
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     rows = torch.tensor([[5, 0], [47, 5]])
     np.testing.assert_array_equal(take_rows(qt, rows).numpy(), want[rows.numpy()])
+
+
+def test_kinds_are_the_packed_kinds():
+    assert [int(k) for k in KINDS] == [int(k) for k in PACKED_KINDS]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_repack_fields_match_jax(kind):
+    """Field names, dtypes, shapes and bytes as the JAX package's repack."""
+    n, k = 32, 512
+    raw, qt = _weights(kind, n, k, seed=5)
+    want = jax_repack(raw, kind, (n, k))
+    assert qt.shape == want.shape and sorted(qt.arrays) == sorted(want.arrays)
+    for name, a in want.arrays.items():
+        got = qt[name].numpy()
+        assert got.dtype == a.dtype and got.shape == a.shape, name
+        assert np.array_equal(got, a), name

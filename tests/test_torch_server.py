@@ -5,7 +5,10 @@ Both servers get the same requests in the same order (the engines' prompt
 caches then hold the same prefixes), greedy at temperature 0. The content
 of every answer must be identical, and so must the SSE framing: the
 sequence of `data:` events, their JSON keys and their text, with ids,
-timestamps and timings left out.
+timestamps and timings left out. A second model, a Q4_K_M mix with a
+llama-3 byte-level BPE vocab and chat template, answers one chat request
+through each server (the JAX server renders the template with jinja2, the
+port through its llama3 builtin).
 """
 
 import asyncio
@@ -221,3 +224,57 @@ def test_chat_template_matches_jax(template):
                                    {"role": "user", "content": "and again?"}]
     assert (apply_chat_template(template, messages, add_generation_prompt=True)
             == jax_apply_chat_template(template, messages, add_generation_prompt=True))
+
+
+def _serve_once(server_port, server_jax, method, path, body):
+    """One request to the port's server and to the JAX server."""
+    httpd = server_port.make_httpd("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    server_port.engine.start()
+    try:
+        status, _, text = _port_call(f"http://127.0.0.1:{httpd.server_address[1]}", method,
+                                     path, body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server_port.engine.stop()
+    server_jax.engine.start()
+
+    async def go():
+        client = TestClient(TestServer(server_jax.make_app()))
+        await client.start_server()
+        try:
+            r = await client.request(method, path, json=body, headers=AUTH)
+            return r.status, await r.text()
+        finally:
+            await client.close()
+
+    try:
+        jstatus, jtext = asyncio.new_event_loop().run_until_complete(go())
+    finally:
+        server_jax.engine.stop()
+    return (status, _strip(json.loads(text))), (jstatus, _strip(json.loads(jtext)))
+
+
+def test_llama3_chat_on_q4_k_m_bpe_model_matches_jax(tmp_path):
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    path = str(tmp_path / "synth-q4_k_m-bpe.gguf")
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=2048, n_ctx_train=256,
+                      rope=RopeParams(n_dims=128, freq_base=500000.0))
+    write_synth_gguf(path, cfg, "Q4_K_M", seed=6, vocab="llama-bpe")
+    model = load_model(path)
+    assert model.vocab.chat_template and model.tokenizer is not None
+    ours = Server(Engine(model, device="cpu", **ENGINE_KW), model_name="tiny", api_key="secret")
+    theirs = JaxServer(JaxEngine(jax_load_model(path), use_pallas=False, context_shift=False,
+                                 **ENGINE_KW), model_name="tiny", api_key="secret")
+    got, want = _serve_once(ours, theirs, "POST", "/v1/chat/completions",
+                            {**CHAT, "max_tokens": 10})
+    assert got[0] == want[0] == 200
+    assert got[1] == want[1]
+    ch = got[1]["choices"][0]
+    assert ch["finish_reason"] in ("stop", "length") and got[1]["usage"]["prompt_tokens"] > 12
