@@ -32,6 +32,14 @@ Phases:
            a profiled chunk, a profiled 512-token prefill), then the server
            (slots bf16 and paged q8_0) with chat through the llama3 template.
   q5km     the same model as Q5_K_M through the CLI.
+  small_moe a 2-layer Mixtral-shaped model (8 experts, top-2) at narrow
+           widths in four mixes (Q4_K_M, Q5_K_M, Q4_0, Q8_0): a 34-token
+           prefill (dense-all experts) and decode (the selected-expert
+           kernel) on the card against the CPU.
+  mixtral  a full-width, full-depth Mixtral-8x7B Q4_K_M GGUF (SPM vocab,
+           Mixtral-Instruct chat template): the CLI, the launches of one
+           decode step (96 selected-expert GEMVs a token), a profiled chunk
+           and 512-token prefill, then a four-slot server burst.
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -58,7 +66,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "llama3", "q5km")
+PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "llama3", "q5km",
+          "small_moe", "mixtral")
 
 
 def fail(msg: str) -> None:
@@ -253,6 +262,100 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
         bms, by = bound_ms(t["bytes"], t["flops"])
         rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
                    bound_ms=bms, bound_by=by)
+
+
+# Mixtral-8x7B: (N, K) of the expert stacks (gate/up, down), E = 8; calls of
+# each B9 kind per CLI decode token (S = 2 rows: one token, top-2) on the
+# Q4_K_M path (gate/up Q4_K in all 32 layers, down Q6_K in the 16
+# use_more_bits layers and Q4_K in the rest) and, for the kinds it does not
+# run, on a Q5_K_M (gate/up/down Q5_K, down Q6_K where use_more_bits) or an
+# all-Q4_0 / all-Q8_0 file of the same model
+MOE_SHAPES = [(14336, 4096), (4096, 14336)]
+MOE_DECODE_CALLS = {"q4_k": {(14336, 4096): 64, (4096, 14336): 16},
+                    "q6_k": {(4096, 14336): 16},
+                    "q5_k": {(14336, 4096): 64, (4096, 14336): 16},
+                    "q4_0": {(14336, 4096): 64, (4096, 14336): 32},
+                    "q8_0": {(14336, 4096): 64, (4096, 14336): 32}}
+MOE_ROWS = (1, 2, 8)  # one token top-1, the CLI's top-2, four slots top-2
+
+
+def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0):
+    """B9 against its plain version at the Mixtral shapes: per-row NMSE for
+    S rows with random ids (repeats and the last expert), a planted fault
+    (the plain version with the last row's expert swapped) that the limit
+    must catch, and the device time per decode token (S=2, the selected
+    experts cold in L2)."""
+    import numpy as np
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm_expert_rows, qmm_expert_rows_plain
+    from llama_cpp_dsp_tpu_torch.quant.dequant import dequant_fields
+    from llama_cpp_dsp_tpu_torch.tools.synth import synth_qtensor
+
+    kind = GGMLType[kind_name.upper()]
+    name = f"qmm_experts_{kind_name}"
+    rng = np.random.default_rng(rng_seed)
+    gen = torch.Generator(device="cuda").manual_seed(rng_seed)
+    worst = worst_nmse = 0.0
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+
+    def library(x, w, sel):  # PyTorch alone: dequant the selected experts, bmm
+        s, (n, k) = x.shape[0], w.shape
+        rows = {f: a[sel.long()].reshape(s * n, *a.shape[2:]) for f, a in w.arrays.items()}
+        wd = dequant_fields(w.kind, rows, torch.bfloat16).reshape(s, n, k)
+        return torch.bmm(wd, x.to(torch.bfloat16)[:, :, None])[:, :, 0]
+
+    for n, k in MOE_SHAPES:
+        w = synth_qtensor(rng, kind, (n_expert, n, k)).to("cuda")
+        per_expert = w.nbytes // n_expert
+        for s in MOE_ROWS:
+            ids = rng.integers(0, n_expert, s)
+            ids[0] = ids[-1] = n_expert - 1  # the last expert, and a repeat for s > 1
+            sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
+            bad_sel = sel.clone()
+            bad_sel[-1] = (sel[-1] + 1) % n_expert  # the last row's expert swapped
+            x = torch.randn(s, k, generator=gen, device="cuda").to(torch.bfloat16)
+            got = qmm_expert_rows(x, w, sel)
+            plain = qmm_expert_rows_plain(x, w, sel)
+            bad = qmm_expert_rows_plain(x, w, bad_sel)
+            torch.cuda.synchronize()
+            errs = slot_nmse(got, plain)
+            fault = max(slot_nmse(bad, plain))
+            err = float((got - plain).abs().max())
+            worst, worst_nmse = max(worst, err), max(worst_nmse, max(errs))
+            print(f"  {name} N={n} K={k} S={s} sel={ids.tolist()}: worst row nmse vs plain "
+                  f"{max(errs):.2e}, max|kernel-plain| {err:.3e}, planted fault 'row {s - 1}'s "
+                  f"expert swapped' {fault:.2e} (tol nmse {QMM_NMSE_TOL:g})")
+            if not (max(errs) <= QMM_NMSE_TOL and torch.isfinite(got).all()):
+                fail(f"{name} N={n} K={k} S={s} disagrees with its plain version")
+            if not fault > QMM_NMSE_TOL:
+                fail(f"{name}: the tolerance would not catch a row's expert swapped")
+        calls = MOE_DECODE_CALLS[kind_name].get((n, k), 0)
+        if calls:  # S=2 (one token, top-2); sets rotate over the experts
+            x = torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
+            sets = [(x, w, torch.tensor([(2 * i) % n_expert, (2 * i + 1) % n_expert],
+                                        dtype=torch.int32, device="cuda"))
+                    for i in range(n_expert // 2)]
+            ms = time_ms(qmm_expert_rows, sets)
+            pms = time_ms(qmm_expert_rows_plain, sets, iters=5)
+            lms = time_ms(library, sets, iters=10)
+            print(f"  {name} N={n} K={k} S=2: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"dequant+bmm {lms:.4f} ms, {2 * per_expert / ms / 1e6:.0f} GB/s of selected "
+                  f"experts, {calls} calls/token")
+            t["ms"] += calls * ms
+            t["plain_ms"] += calls * pms
+            t["library_ms"] += calls * lms
+            t["bytes"] += calls * (2 * per_expert + x.numel() * 2 + 4 * 2 + 2 * n * 4)
+            t["flops"] += calls * 2.0 * 2 * n * k
+        del w
+        torch.cuda.empty_cache()
+    rec = records[name]
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), worst)
+    rec["max_nmse"] = max(rec.get("max_nmse", 0.0), worst_nmse)
+    bms, by = bound_ms(t["bytes"], t["flops"])
+    rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=bms,
+               bound_by=by)
 
 
 FLASH_ATOL = 2e-3  # bf16 cache, f32 math in both; sums in another order
@@ -566,14 +669,15 @@ def check_attn_fused(records):
 # paths through the port
 # ---------------------------------------------------------------------------
 
-def run_cli(argv: list[str]) -> tuple[str, str]:
-    """The port's CLI in this process; returns (stdout text, stderr text)."""
+def run_cli(argv: list[str], model=None) -> tuple[str, str]:
+    """The port's CLI in this process (on `model` when given, the GGUF of
+    -m already loaded); returns (stdout text, stderr text)."""
     from llama_cpp_dsp_tpu_torch.tools.cli import main
 
     out, err = io.BytesIO(), io.StringIO()
     wrapper = io.TextIOWrapper(out, encoding="utf-8", write_through=True)
     with contextlib.redirect_stdout(wrapper), contextlib.redirect_stderr(err):
-        rc = main(argv)
+        rc = main(argv, model)
     wrapper.flush()
     text = out.getvalue().decode("utf-8", errors="replace")
     print(f"  cli {' '.join(argv[2:])}: rc {rc}")
@@ -670,6 +774,7 @@ def small_model_check(path: Path, prompt_text: str, must: list[str], label: str)
                   len(stream))
     print(f"  {label} greedy stream: {n_same}/{len(stream)} leading tokens agree")
     path.unlink()
+    return counts
 
 
 def phase_small() -> None:
@@ -705,7 +810,8 @@ def phase_small_kq() -> None:
                       ["qmm_q4_k", "qmm_q6_k", "flash_decode"], "small_kq")
 
 
-def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "spm") -> None:
+def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "spm",
+                chat_template: str | None = None) -> None:
     """A full-width, full-depth synthetic GGUF of `tools/synth.py` CONFIGS
     (written once per run, deleted after its last phase)."""
     from llama_cpp_dsp_tpu_torch.tools.synth import CONFIGS, write_synth_gguf
@@ -713,7 +819,7 @@ def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "
     cfg = CONFIGS[cfg_name]
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    write_synth_gguf(str(path), cfg, ftype, seed=seed, vocab=vocab)
+    write_synth_gguf(str(path), cfg, ftype, seed=seed, vocab=vocab, chat_template=chat_template)
     print(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB, {cfg.n_layers} layers, "
           f"{ftype}, {vocab} vocab) in {time.perf_counter() - t0:.1f} s")
 
@@ -863,14 +969,56 @@ def _slot_state(cache, idx: int) -> list:
     return [b[idx].clone() for b in (*cache.k, *cache.v)]
 
 
-def _reference_first_step(engine, prompt: list[int]):
+@contextlib.contextmanager
+def _record_moe(log: list):
+    """Record every MoE layer's FFN input and output inside the block, in
+    layer order, with the layer's params."""
+    from llama_cpp_dsp_tpu_torch.models import llama
+
+    inner = llama.ffn_moe
+
+    def ffn_moe(x, layer, cfg):
+        out = inner(x, layer, cfg)
+        log.append((x.detach().clone(), out.detach().clone(), layer))
+        return out
+
+    llama.ffn_moe = ffn_moe
+    try:
+        yield log
+    finally:
+        llama.ffn_moe = inner
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+# an MoE layer of the batched decode step, rerun at B=1 on the same input
+# row, must give the same output: B9 computes a row alike at any S and the
+# router and the rest of the layer are row-wise; the first layer's input
+# (embedding, attention) must agree with the B=1 reference's
+MOE_LAYER_RTOL = 1e-3
+
+
+def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
+                          moe_log: list | None = None):
     """LlamaContext's computation on the engine's weights: `forward` at B=1
     over a contiguous cache of the engine's row type (bf16 or Q8_0), the
     prompt as one prefill, then one decode step on the prompt's argmax.
     Returns (that token, the decode step's logits, the row type). The row
     type is the engine's, so the comparison isolates the engine's path
     (slots or pages, packed prefill, batched decode) from the Q8_0 rounding
-    of the rows, to which a random-weight model can be very sensitive."""
+    of the rows, to which a random-weight model can be very sensitive.
+
+    as_engine: the prompt as the engine's slot prefill runs it
+    (`Engine._prefill_slot`: one chunk of the bucket's length, the padding
+    rows at position 0), so that the cached rows come out bit-equal and the
+    comparison holds the engine's batched decode step alone. An MoE model
+    needs it: a random router's top-2 choice flips under the last-bit
+    differences that another prefill shape brings, somewhere in 32 layers
+    of the prompt's tokens, and one flip moves the logits by O(1).
+    moe_log: a list that receives the decode step's MoE layer inputs and
+    outputs (`_record_moe`)."""
     import torch
 
     from llama_cpp_dsp_tpu_torch.models.llama import forward
@@ -882,28 +1030,43 @@ def _reference_first_step(engine, prompt: list[int]):
     cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.n_kv_heads,
                           cfg.head_dim, kv, "cuda")
     n = len(prompt)
-    pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
-    logits = forward(engine.params, cfg, torch.tensor([prompt], device="cuda"), pos, cache, 0)
-    tok = int(logits[0, -1].argmax())
-    step = forward(engine.params, cfg, torch.tensor([[tok]], device="cuda"),
-                   torch.tensor([[n]], dtype=torch.int32, device="cuda"), cache, n)
+    t = engine._bucket(n) if as_engine else n
+    toks = torch.zeros(1, t, dtype=torch.long)
+    toks[0, :n] = torch.tensor(prompt)
+    pos = torch.zeros(1, t, dtype=torch.int32)
+    pos[0, :n] = torch.arange(n)
+    logits = forward(engine.params, cfg, toks.to("cuda"), pos.to("cuda"), cache, 0)
+    tok = int(logits[0, n - 1].argmax())
+    with _record_moe([] if moe_log is None else moe_log):
+        step = forward(engine.params, cfg, torch.tensor([[tok]], device="cuda"),
+                       torch.tensor([[n]], dtype=torch.int32, device="cuda"), cache, n)
     return tok, step[0, 0].float().cpu().numpy(), kv
 
 
-def _idle_slot_and_first_logits(engine, prompts) -> float:
+def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
     """Prefill `prompts` into three slots through the engine, then one
     batched decode step through `forward` at B=4 with the fourth slot idle
     (its write offset is the capacity). Fails unless the idle slot's rows are
-    byte-identical afterwards and prompts[0]'s logits agree with
-    `_reference_first_step`'s. Returns the relative diff."""
+    byte-identical afterwards, prompts[0]'s logits agree with
+    `_reference_first_step`'s and the step launched every kernel of `must`.
+    Returns the relative diff."""
     import numpy as np
     import torch
 
     from llama_cpp_dsp_tpu_torch.models.llama import forward
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.runtime.engine import Request
     from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 
-    ref_token, ref_logits, kv = _reference_first_step(engine, list(prompts[0]))
+    moe = engine.cfg.n_expert > 0
+    ref_moe, eng_moe = [], []
+    ref_token, ref_logits, kv = _reference_first_step(engine, list(prompts[0]), as_engine=moe,
+                                                      moe_log=ref_moe)
+    if moe:  # the same reference with the prompt prefilled at once (not gated)
+        _, once, _ = _reference_first_step(engine, list(prompts[0]))
+        print(f"  MoE reference prefilled at once instead of in the engine's padded chunk: "
+              f"its first decode logits differ from the chunked one's by "
+              f"{float(np.abs(once - ref_logits).max() / np.abs(ref_logits).max()):.3e}")
     reqs = [engine.submit(Request(0, list(p), max_new_tokens=1, sampler=make_chain(temp=0)))
             for p in prompts]
     while not all(r.done.is_set() for r in reqs):
@@ -922,19 +1085,29 @@ def _idle_slot_and_first_logits(engine, prompts) -> float:
     offs = pos[:, 0].clone()
     offs[idle] = engine.cache.capacity
     before = _slot_state(engine.cache, idle)
-    logits = forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"), engine.cache,
-                     offs.to("cuda"))[:, 0]
+    reset_launches()
+    with _record_moe(eng_moe):
+        logits = forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"),
+                         engine.cache, offs.to("cuda"))[:, 0]
     torch.cuda.synchronize()
+    if must:
+        require(dict(LAUNCHES), list(must), f"B={b} decode step")
     same = all(torch.equal(a, c) for a, c in zip(before, _slot_state(engine.cache, idle)))
     got = logits[where[0]].float().cpu().numpy()
     rel = float(np.abs(got - ref_logits).max() / np.abs(ref_logits).max())
     print(f"  idle slot {idle} byte-identical after a B={b} decode step: {same}; first decode "
-          f"logits vs B=1 forward over a contiguous {kv} cache: max rel diff {rel:.3e} "
-          f"(tol {LOGIT_RTOL:g}); engine's own first token {reqs[0].result_tokens[0]} vs "
+          f"logits vs B=1 forward over a contiguous {kv} cache"
+          f"{' (prefilled as the engine does)' if moe else ''}: max rel diff {rel:.3e} "
+          f"({'MoE: gated layer by layer below' if moe else f'tol {LOGIT_RTOL:g}'}); "
+          f"engine's own first token {reqs[0].result_tokens[0]} vs "
           f"{ref_token}")
     if not same:
         fail("a batched decode step changed an idle slot's cache rows")
-    if not (rel < LOGIT_RTOL and np.isfinite(got).all()):
+    if not np.isfinite(got).all():
+        fail("first decode-step logits are not finite")
+    if moe:
+        _check_moe_layers(engine, ref_moe, eng_moe, where[0], rel)
+    elif rel >= LOGIT_RTOL:
         fail("first decode-step logits disagree with the B=1 forward")
     # the same step again (it rewrites the same rows), profiled
     print(f"  B={b} decode step (three slots decoding, one idle):")
@@ -943,8 +1116,33 @@ def _idle_slot_and_first_logits(engine, prompts) -> float:
     return rel
 
 
+def _check_moe_layers(engine, ref_moe: list, eng_moe: list, row: int, rel: float) -> None:
+    """The MoE engine's batched decode step against the B=1 reference, layer
+    by layer. The logits are not gated: a random 32-layer MoE is chaotic,
+    so the last-bit differences between a batched and a B=1 step (another
+    FMA contraction in the K-quant GEMV, another cuBLAS kernel for the
+    router) grow through the layers and flip routers. Gated instead: every
+    layer's output for `row`, rerun at B=1 on the engine's own input row
+    (B9 at S=2 against S=8), and the first layer's input (the embedding and
+    the batched attention against the B=1 path)."""
+    from llama_cpp_dsp_tpu_torch.models.llama import ffn_moe
+
+    layer_rel = [_rel(ffn_moe(x[row:row + 1], layer, engine.cfg)[0], out[row])
+                 for x, out, layer in eng_moe]
+    drift = [_rel(x[row], rx[0]) for (x, _, _), (rx, _, _) in zip(eng_moe, ref_moe)]
+    print(f"  MoE layers of the B={engine.n_slots} step rerun at B=1 on the same input row: "
+          f"worst rel diff {max(layer_rel):.3e} over {len(layer_rel)} layers (tol "
+          f"{MOE_LAYER_RTOL:g}); FFN input against the B=1 reference's, layers 0, 4, 8, ...: "
+          f"{' '.join(f'{d:.1e}' for d in drift[::4])} (layer 0 tol {MOE_LAYER_RTOL:g}); "
+          f"the logits' {rel:.3e} is that drift at the end (not gated)")
+    if not (len(layer_rel) == engine.cfg.n_layers and max(layer_rel) < MOE_LAYER_RTOL):
+        fail("an MoE layer of the batched decode step disagrees with its B=1 rerun")
+    if not drift[0] < MOE_LAYER_RTOL:
+        fail("the batched decode step's first layer disagrees with the B=1 reference")
+
+
 def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: int = 1024,
-                system_repeat: int = 7) -> None:
+                system_repeat: int = 7, step_must=()) -> None:
     """The port's server in-process over each engine configuration: four
     concurrent requests through HTTP, two sharing a system prompt, the
     second of those sent once the first has decoded its first token (a
@@ -1044,7 +1242,7 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
         texts[name] = [c[2] for c in checked]
         summary[name] = {"tokens_per_s": n_tok / wall, "ttft_ms": ttft,
                          "cached": m["prompt_tokens_cached"], "launches": counts}
-        _idle_slot_and_first_logits(engine, decode_prompts)
+        _idle_slot_and_first_logits(engine, decode_prompts, step_must)
         del engine
         torch.cuda.empty_cache()
     for name, t in texts.items():
@@ -1121,6 +1319,101 @@ def phase_q5km(records: dict) -> None:
     print(f"  Llama-3-8B Q5_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
 
 
+SMALL_MOE_MIXES = {  # ftype → the selected-expert kernels its path runs
+    "Q4_K_M": ["qmm_experts_q4_k", "qmm_experts_q6_k"],
+    "Q5_K_M": ["qmm_experts_q5_k", "qmm_experts_q6_k"],
+    "Q4_0": ["qmm_experts_q4_0"],
+    "Q8_0": ["qmm_experts_q8_0"],
+}
+
+
+def phase_small_moe(records: dict) -> None:
+    """A 2-layer Mixtral-shaped model (8 experts, top-2, GQA, head_dim 128)
+    at width 256 in four mixes. The 35-token prompt is one 32-token chunk
+    (b·t·u = 64 > 8: every expert over every row) and a 3-token one (6 ≤ 8:
+    the selected-expert kernel), decode the kernel; card against CPU."""
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=512, n_ctx_train=256,
+                      rope=RopeParams(n_dims=128, freq_base=1e6), n_expert=8, n_expert_used=2)
+    for ftype, must in SMALL_MOE_MIXES.items():
+        path = ROOT / "build" / "smoke" / f"small-moe-{ftype.lower()}.gguf"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_synth_gguf(str(path), cfg, ftype, seed=5)
+        counts = small_model_check(path, "The quick brown fox jumps over it.", must,
+                                   f"small_moe {ftype}")
+        for k in must:  # a kernel's count comes from the first path that runs it
+            records[k]["launches"] = records[k]["launches"] or counts[k]
+
+
+MIXTRAL_B9 = ["qmm_experts_q4_k", "qmm_experts_q6_k"]
+SERVE_CONFIGS_MX = {"slots bf16": ([], ["flash_decode", *MIXTRAL_B9])}
+
+
+def phase_mixtral(records: dict, path: Path, model) -> None:
+    """Mixtral-8x7B Q4_K_M at full width and depth: the CLI on the loaded
+    model, the launches of one decode step by kernel (96 selected-expert
+    GEMVs: gate, up and down in 32 layers), a profiled 8-step chunk and a
+    profiled 512-token prefill (every expert over every row), then a
+    four-slot server burst with chats through the Mixtral-Instruct
+    template, whose B=4 decode step runs the kernel (b·t·u = 8 ≤ 8)."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+    from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
+
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"],
+                     model)
+    counts = dict(LAUNCHES)
+    require(counts, [*MIXTRAL_B9, "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "qmm_q8_0", "flash_decode"],
+            "mixtral CLI")
+    for k in MIXTRAL_B9:
+        records[k]["launches"] = counts[k]
+    print(f"  Mixtral-8x7B Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
+    prompt = model.tokenizer.encode("hello")
+    ctx = LlamaContext(model, n_ctx=512)
+    first = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    ctx.eval_tokens([first])
+    torch.cuda.synchronize()
+    step = {k: v for k, v in LAUNCHES.items() if v}
+    n_b9 = sum(v for k, v in step.items() if k.startswith("qmm_experts_"))
+    print(f"  launches of one decode step: {step}; selected-expert GEMVs {n_b9}")
+    if n_b9 != 3 * model.cfg.n_layers:
+        fail(f"one Mixtral decode step launched {n_b9} selected-expert GEMVs, "
+             f"not {3 * model.cfg.n_layers}")
+    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
+    print(f"  decode step at context {ctx.n_past}:")
+    reset_launches()
+    profile_chunk(ctx, stream[-1])  # three 8-step chunks: warm-up, timed, profiled
+    print(f"    port kernel launches per token: "
+          f"{ {k: v / 24 for k, v in LAUNCHES.items() if v} }")
+    long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 12)[:512]
+
+    def prefill():
+        ctx.n_past = 0
+        ctx.eval_tokens(long)
+
+    print(f"  prefill of {len(long)} tokens in one call:")
+    profile_steps(prefill, 1)
+    del ctx
+    torch.cuda.empty_cache()
+    chat = apply_chat_template(model.vocab.chat_template,
+                               [{"role": "system", "content": "Be brief."},
+                                {"role": "user", "content": "Hi"}])
+    print(f"  the GGUF's chat template renders a system+user chat as {chat!r}")
+    if not chat.startswith("[INST]"):
+        fail("the Mixtral-Instruct template did not render through the [INST] family")
+    phase_serve(records, path, model, SERVE_CONFIGS_MX, n_ctx=2048, system_repeat=16,
+                step_must=MIXTRAL_B9)
+
+
 def phase_q8(records: dict) -> None:
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.tools.synth import TINYLLAMA_1B, write_synth_gguf
@@ -1163,6 +1456,10 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
                  "llama_cpp_dsp_tpu/ops/pallas/qmm.py:345", f"nmse <= {QMM_NMSE_TOL:g}"),
     "qmm_q5_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_dsp_tpu/ops/pallas/qmm.py:328", f"nmse <= {QMM_NMSE_TOL:g}"),
+    **{f"qmm_experts_{k}": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                            "llama_cpp_dsp_tpu/ops/pallas/qmm.py:781",
+                            f"per-row nmse <= {QMM_NMSE_TOL:g}")
+       for k in ("q4_0", "q8_0", "q4_k", "q5_k", "q6_k")},
 }
 
 
@@ -1199,16 +1496,20 @@ def main(argv=None) -> int:
     smoke = ROOT / "build" / "smoke"
     # synthetic GGUFs shared by phases: written and loaded on first use,
     # deleted after their last phase (and at the end in any case)
-    files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm"),
-             "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe")}
+    from llama_cpp_dsp_tpu_torch.tools.synth import MIXTRAL_CHAT_TEMPLATE
+
+    files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm", None),
+             "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe", None),
+             "mx": (smoke / "mixtral-8x7b-q4_k_m.gguf", "mixtral-8x7b", "Q4_K_M", "spm",
+                    MIXTRAL_CHAT_TEMPLATE)}
     loaded = {}
 
     def model_of(key):
         if key not in loaded:
             from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 
-            path, cfg_name, ftype, vocab = files[key]
-            write_model(path, cfg_name, ftype, seed=0, vocab=vocab)
+            path, cfg_name, ftype, vocab, template = files[key]
+            write_model(path, cfg_name, ftype, seed=0, vocab=vocab, chat_template=template)
             t0 = time.perf_counter()
             loaded[key] = load_model(str(path))
             print(f"  loaded {path.name} in {time.perf_counter() - t0:.1f} s")
@@ -1230,6 +1531,7 @@ def main(argv=None) -> int:
                                             DECODE_CALLS_L3_Q6, records),
                                   check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
                                             records),
+                                  *(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
                                   check_flash_decode(records), check_attn_fused(records),
                                   check_decode_variants(records))),
              ("small", phase_small),
@@ -1240,7 +1542,10 @@ def main(argv=None) -> int:
              ("small_kq", phase_small_kq),
              ("llama3", lambda: (phase_llama3(records, files["l3"][0], model_of("l3")),
                                  done_with("l3"))),
-             ("q5km", lambda: phase_q5km(records))]
+             ("q5km", lambda: phase_q5km(records)),
+             ("small_moe", lambda: phase_small_moe(records)),
+             ("mixtral", lambda: (phase_mixtral(records, files["mx"][0], model_of("mx")),
+                                  done_with("mx")))]
     try:
         for name, fn in steps:
             if name in phases:

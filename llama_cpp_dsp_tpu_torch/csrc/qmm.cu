@@ -38,6 +38,17 @@
 // as bf16 (rounded from the same f32 products as the plain version) and
 // multiplies it with WMMA bf16 fragments, f32 accumulation. Both are simple
 // first versions: no TMA, no wgmma, no pipelining across K steps.
+//
+// The MoE selected-expert GEMV (qmm_experts_*) replaces
+// llama_cpp_dsp_tpu/ops/pallas/qmm.py::_kernel_experts (entry
+// qmm_expert_rows): y[s] = x[s] · dequant(W[sel[s]])ᵀ for an expert stack
+// W [E, N, K] whose fields carry a leading expert axis. The TPU kernel's
+// scalar-prefetched expert ids drive its BlockSpec index maps; here block
+// row blockIdx.y = s reads sel[s] from device memory (clamped to [0, E), so
+// no id reads outside the stack), offsets every field pointer by that
+// expert's size (`at_expert`) and runs the GEMV's warp-per-row loop with one
+// activation row. Bound: the selected experts' packed bytes over the memory
+// rate (rows that pick the same expert read it again, as in the TPU kernel).
 #include "common.cuh"
 
 #include <mma.h>  // after cuda_bf16.h (common.cuh): bf16 WMMA fragments
@@ -81,6 +92,12 @@ struct Legacy {  // Q4_0 / Q8_0 (common.cuh)
         const int nb = K >> 5;
         block_dot<Q, NB>(qs + (size_t)row * (size_t)(nb * Q::QS_BYTES), d + (size_t)row * nb,
                          u, x, K, acc);
+    }
+
+    // the same fields of expert e of an [E, N, K] stack
+    __device__ __forceinline__ Legacy at_expert(int e, int N, int K) const {
+        const size_t rows = (size_t)e * N, nb = K >> 5;
+        return Legacy{qs + rows * nb * Q::QS_BYTES, d + rows * nb};
     }
 
     __device__ __forceinline__ void dequant16(int row, int K, int k0,
@@ -157,6 +174,12 @@ struct KQuant45 {  // Q4_K, and Q5_K with qh
             acc[b] += dl0 * s0[b] - ml0 * x0[b] + dl1 * s1[b] - ml1 * x1[b];
     }
 
+    __device__ __forceinline__ KQuant45 at_expert(int e, int N, int K) const {
+        const size_t sb = (size_t)e * N * (K >> 8);  // superblocks before expert e
+        return KQuant45{qs + sb * 128, Q5 ? qh + sb * 32 : qh, sc + sb * 8, mn + sb * 8,
+                        d + sb, dmin + sb};
+    }
+
     __device__ __forceinline__ void dequant16(int row, int K, int k0,
                                               __nv_bfloat16 out[16]) const {
         const int r = k0 & 255, g = r >> 5, l0 = r & 31;  // l0: 0 or 16
@@ -231,6 +254,11 @@ struct KQuant6 {  // Q6_K
         for (int b = 0; b < NB; ++b) acc[b] += out[b];
     }
 
+    __device__ __forceinline__ KQuant6 at_expert(int e, int N, int K) const {
+        const size_t sb = (size_t)e * N * (K >> 8);
+        return KQuant6{ql + sb * 128, qh + sb * 64, sc + sb * 16, d + sb};
+    }
+
     __device__ __forceinline__ void dequant16(int row, int K, int k0,
                                               __nv_bfloat16 out[16]) const {
         const int r = k0 & 255, hh = r >> 7, i = (r >> 5) & 3, l0 = r & 31;  // l0: 0 or 16
@@ -250,12 +278,12 @@ struct KQuant6 {  // Q6_K
     }
 };
 
+// One warp: y[b, row] = the dot of weight row `row` with activation rows
+// b < NB, lanes striding over the row's units, summed by warp shuffles.
 template <class W, int NB>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qmm_gemv(const W w, const __nv_bfloat16* __restrict__ x, float* __restrict__ y, int N, int K) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int row = blockIdx.x * GEMV_WARPS + warp;
-    if (row >= N) return;
+__device__ __forceinline__ void gemv_row(const W& w, const __nv_bfloat16* __restrict__ x,
+                                         float* __restrict__ y, int row, int N, int K) {
+    const int lane = threadIdx.x & 31;
     float acc[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) acc[b] = 0.f;
@@ -268,6 +296,27 @@ qmm_gemv(const W w, const __nv_bfloat16* __restrict__ x, float* __restrict__ y, 
 #pragma unroll
         for (int b = 0; b < NB; ++b) y[(size_t)b * N + row] = acc[b];
     }
+}
+
+template <class W, int NB>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+qmm_gemv(const W w, const __nv_bfloat16* __restrict__ x, float* __restrict__ y, int N, int K) {
+    const int row = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5);
+    if (row >= N) return;
+    gemv_row<W, NB>(w, x, y, row, N, K);
+}
+
+// MoE: block (., s) multiplies activation row s with expert sel[s] of the
+// stack (every field offset by at_expert), one warp per output row.
+template <class W>
+__global__ void __launch_bounds__(GEMV_WARPS * 32)
+qmm_expert_gemv(const W w, const int* __restrict__ sel, int E,
+                const __nv_bfloat16* __restrict__ x, float* __restrict__ y, int N, int K) {
+    const int row = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5);
+    if (row >= N) return;
+    const int s = blockIdx.y;
+    const int e = min(max(__ldg(sel + s), 0), E - 1);
+    gemv_row<W, 1>(w.at_expert(e, N, K), x + (size_t)s * K, y + (size_t)s * N, row, N, K);
 }
 
 // ---- tiled tensor-core path (B > 8) ----------------------------------------
@@ -378,6 +427,16 @@ int qmm_launch(const W& w, const void* x, void* y, int B, int N, int K, void* st
     return (int)cudaGetLastError();
 }
 
+template <class W>
+int qmm_experts_launch(const W& w, const void* x, const void* sel, void* y, int S, int E, int N,
+                       int K, void* stream) {
+    const dim3 grid((N + GEMV_WARPS - 1) / GEMV_WARPS, S);
+    qmm_expert_gemv<W><<<grid, GEMV_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        w, static_cast<const int*>(sel), E, static_cast<const __nv_bfloat16*>(x),
+        static_cast<float*>(y), N, K);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x bf16 [B,K]; y f32 [B,N]; the weight fields as in the header comment
@@ -419,6 +478,47 @@ KERNELS_API int qmm_q6_k(const void* x, const void* ql, const void* qh, const vo
     const KQuant6 w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
                     static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
     return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+// MoE selected-expert GEMV: x bf16 [S,K], sel int32 [S], y f32 [S,N]; the
+// weight fields as above with a leading expert axis [E, ...]. S <= 65535
+// (the grid's y extent; checked by the Python wrapper).
+KERNELS_API int qmm_experts_q4_0(const void* x, const void* sel, const void* qs, const void* d,
+                                 void* y, int S, int E, int N, int K, void* stream) {
+    const Legacy<Q4_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q8_0(const void* x, const void* sel, const void* qs, const void* d,
+                                 void* y, int S, int E, int N, int K, void* stream) {
+    const Legacy<Q8_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q4_k(const void* x, const void* sel, const void* qs, const void* sc,
+                                 const void* mn, const void* d, const void* dmin, void* y, int S,
+                                 int E, int N, int K, void* stream) {
+    const KQuant45<false> w{static_cast<const uint8_t*>(qs), nullptr,
+                            static_cast<const uint8_t*>(sc), static_cast<const uint8_t*>(mn),
+                            static_cast<const float*>(d), static_cast<const float*>(dmin)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q5_k(const void* x, const void* sel, const void* qs, const void* qh,
+                                 const void* sc, const void* mn, const void* d, const void* dmin,
+                                 void* y, int S, int E, int N, int K, void* stream) {
+    const KQuant45<true> w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(qh),
+                           static_cast<const uint8_t*>(sc), static_cast<const uint8_t*>(mn),
+                           static_cast<const float*>(d), static_cast<const float*>(dmin)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q6_k(const void* x, const void* sel, const void* ql, const void* qh,
+                                 const void* sc, const void* d, void* y, int S, int E, int N,
+                                 int K, void* stream) {
+    const KQuant6 w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
+                    static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
 }
 
 KERNELS_API const char* kernels_error_string(int code) {

@@ -3,12 +3,15 @@
 Produces files byte-compatible with the reference writer
 (ggml/src/gguf.cpp gguf_write_to_file / gguf-py GGUFWriter): header, KV
 section, tensor-info table, alignment padding, then tensor blobs each padded
-to the alignment.
+to the alignment. A tensor's data may be given as a function that makes it:
+`write()` then makes and writes one tensor at a time, so a file larger than
+the host's memory can be written.
 """
 
 from __future__ import annotations
 
 import struct
+from collections.abc import Callable
 from typing import Any, BinaryIO
 
 import numpy as np
@@ -74,8 +77,9 @@ class GGUFWriter:
         self.path = path
         self.alignment = alignment
         self._kv: list[tuple[str, GGUFValueType, Any, GGUFValueType | None]] = []
-        # (name, ne-shape, type, data-bytes)
-        self._tensors: list[tuple[str, tuple[int, ...], GGMLType, np.ndarray]] = []
+        # (name, ne-shape, type, data bytes or the function that makes them, byte count)
+        self._tensors: list[tuple[str, tuple[int, ...], GGMLType,
+                                  np.ndarray | Callable[[], np.ndarray], int]] = []
         if arch is not None:
             self.add_kv(Keys.General.ARCHITECTURE, arch)
             if alignment != GGUF_DEFAULT_ALIGNMENT:
@@ -101,7 +105,7 @@ class GGUFWriter:
     def add_tensor(
         self,
         name: str,
-        data: np.ndarray,
+        data: np.ndarray | Callable[[], np.ndarray],
         *,
         ggml_type: GGMLType | None = None,
         ne_shape: tuple[int, ...] | None = None,
@@ -111,8 +115,13 @@ class GGUFWriter:
         For float/int arrays pass the numpy array directly (row-major; the
         written ne is the reversed numpy shape). For pre-quantized data pass
         raw uint8 `data` plus explicit `ggml_type` and logical `ne_shape`.
+        `data` may be a function of no arguments that returns the array
+        (`ggml_type` and `ne_shape` then required): it runs when `write()`
+        reaches the tensor, and its array is dropped once written.
         """
         if ggml_type is None:
+            if callable(data):
+                raise ValueError(f"tensor {name!r}: a made tensor needs ggml_type and ne_shape")
             ggml_type = _NP_TO_GGML[data.dtype]
             ne_shape = tuple(reversed(data.shape))
         else:
@@ -122,13 +131,16 @@ class GGUFWriter:
         for d in ne_shape:
             n *= d
         expect = n // tr.block_size * tr.type_size
+        if not callable(data):
+            data = self._raw(name, data, expect)
+        self._tensors.append((name, ne_shape, ggml_type, data, expect))
+
+    @staticmethod
+    def _raw(name: str, data: np.ndarray, expect: int) -> np.ndarray:
         raw = np.ascontiguousarray(data).view(np.uint8).reshape(-1)
         if raw.nbytes != expect:
-            raise ValueError(
-                f"tensor {name!r}: got {raw.nbytes} bytes, expected {expect} "
-                f"for {ne_shape} {ggml_type.name}"
-            )
-        self._tensors.append((name, ne_shape, ggml_type, raw))
+            raise ValueError(f"tensor {name!r}: got {raw.nbytes} bytes, expected {expect}")
+        return raw
 
     # -- serialization ----------------------------------------------------
     @staticmethod
@@ -172,15 +184,16 @@ class GGUFWriter:
                 self._w_str(f, key)
                 self._w_value(f, vtype, v, etype)
             offset = 0
-            for name, ne, ttype, raw in self._tensors:
+            for name, ne, ttype, _data, nbytes in self._tensors:
                 self._w_str(f, name)
                 f.write(struct.pack("<I", len(ne)))
                 for d in ne:
                     f.write(struct.pack("<Q", d))
                 f.write(struct.pack("<IQ", int(ttype), offset))
-                offset += (raw.nbytes + align - 1) // align * align
+                offset += (nbytes + align - 1) // align * align
             pad = (-f.tell()) % align
             f.write(b"\x00" * pad)
-            for _name, _ne, _ttype, raw in self._tensors:
-                f.write(raw.tobytes())
-                f.write(b"\x00" * ((-raw.nbytes) % align))
+            for name, _ne, _ttype, data, nbytes in self._tensors:
+                raw = self._raw(name, data(), nbytes) if callable(data) else data
+                f.write(memoryview(raw))
+                f.write(b"\x00" * ((-nbytes) % align))

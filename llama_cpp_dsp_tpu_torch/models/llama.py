@@ -2,9 +2,10 @@
 models/llama.py, for the plain-llama graph).
 
 rms_norm → q/k/v projection → rope → attention over the KV cache → output
-projection → rms_norm → SwiGLU FFN → residual; final norm → lm_head.
-Weights are QTensors (packed GGUF blocks) or dense tensors; matmuls go
-through ops.qmm, which launches the hand-written kernels on the card.
+projection → rms_norm → SwiGLU FFN (or the MoE FFN, `ffn_moe`) → residual;
+final norm → lm_head. Weights are QTensors (packed GGUF blocks) or dense
+tensors; matmuls go through ops.qmm, which launches the hand-written
+kernels on the card.
 
 Decode (T=1) takes the fused attention kernel when `fused` is on, the
 cache is the bf16 `KVCache` and the layer fits its scope; otherwise the
@@ -46,6 +47,15 @@ class LlamaConfig:
     n_ctx_train: int
     rms_eps: float = 1e-5
     rope: RopeParams = field(default_factory=lambda: RopeParams(n_dims=0))
+    # MoE (JAX models/llama.py:44-45, :68-72, :85); defaults = Mixtral's
+    n_expert: int = 0
+    n_expert_used: int = 0
+    moe_norm_weights: bool = True  # renormalize the top-k router weights
+    moe_shared_expert: bool = False  # an always-on expert (ffn_*_shexp)
+    moe_gate_shexp: bool = False  # the shared expert sigmoid-gated
+    expert_gating: str = "softmax"  # "softmax" | "sigmoid"
+    moe_scale: float = 1.0  # scale of the routed weights
+    moe_weight_before: bool = False  # router weights scale the expert inputs
 
 
 Params = dict[str, Any]
@@ -68,16 +78,94 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Ten
     return out.reshape(b, t, h * d)
 
 
-def ffn_dense(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """SwiGLU FFN; a row-fused gate|up weight is one qmm call."""
-    if "ffn_gateup_fused" in layer:
+def ffn_dense(x: torch.Tensor, layer: Params, cfg: LlamaConfig,
+              suffix: str = "") -> torch.Tensor:
+    """SwiGLU FFN over ffn_{gate,up,down}{suffix} ("_shexp": an MoE's shared
+    expert); a row-fused gate|up weight is one qmm call."""
+    if not suffix and "ffn_gateup_fused" in layer:
         gu = qmm(x, layer["ffn_gateup_fused"])
         gate, up = gu[..., :cfg.n_ff], gu[..., cfg.n_ff:]
     else:
-        gate = qmm(x, layer["ffn_gate"])
-        up = qmm(x, layer["ffn_up"])
+        gate = qmm(x, layer[f"ffn_gate{suffix}"])
+        up = qmm(x, layer[f"ffn_up{suffix}"])
     h = (silu(gate) * up).to(COMPUTE_DTYPE)
-    return qmm(h, layer["ffn_down"])
+    return qmm(h, layer[f"ffn_down{suffix}"])
+
+
+def _expert_slice(w, eid: int):
+    """One expert of a stack: a QTensor's fields or a dense [E, N, K]."""
+    return w.expert(eid) if isinstance(w, QTensor) else w[eid]
+
+
+def ffn_moe(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
+    """MoE FFN (JAX models/llama.py::ffn_moe; reference build_moe_ffn):
+    router logits, softmax or sigmoid, top-k (the optional ffn_exp_probs_b
+    bias steers only the selection), renormalized and scaled weights, the
+    experts' SwiGLU FFNs mixed by those weights, an optional shared expert.
+
+    The branch is a rule of shapes and weight types only, so the CPU takes
+    it too: packed expert stacks with b·t·u ≤ min(32, E) rows (decode) run
+    the selected-expert GEMV (`qmm_expert_rows`, kernel B9 on the card)
+    over the rows repeated per used expert; otherwise (prefill) every expert
+    runs over every row and a one-hot of the selection mixes them. The
+    selected ids stay on the device: the kernel reads them there."""
+    from ..ops.kernels.qmm import qmm_expert_rows
+
+    e, u = cfg.n_expert, cfg.n_expert_used
+    logits = qmm(x, layer["ffn_gate_inp"])  # [B, T, E] f32
+    if cfg.expert_gating == "sigmoid":
+        probs = torch.sigmoid(logits.float())
+    else:
+        probs = softmax_f32(logits)
+    probs_b = layer.get("ffn_exp_probs_b")
+    if probs_b is not None:
+        _, sel = torch.topk(probs + probs_b.float(), u, dim=-1)
+        weights = torch.gather(probs, -1, sel)
+    else:
+        weights, sel = torch.topk(probs, u, dim=-1)  # [B, T, U]
+    if cfg.moe_norm_weights:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    weights = weights * cfg.moe_scale
+    gate_w, up_w, down_w = layer["ffn_gate_exps"], layer["ffn_up_exps"], layer["ffn_down_exps"]
+    b, t = x.shape[:2]
+    stacked = all(isinstance(w, QTensor) and w.n_expert for w in (gate_w, up_w, down_w))
+    if stacked and b * t * u <= min(32, e):
+        sel_rows = sel.reshape(-1).to(torch.int32)  # [M·U]
+        w_rows = weights.reshape(-1, 1).float()
+        xr = x.reshape(b * t, -1).repeat_interleave(u, dim=0)  # [M·U, C]
+        if cfg.moe_weight_before:
+            xr = xr.float() * w_rows
+        xr = xr.to(COMPUTE_DTYPE)
+        g = qmm_expert_rows(xr, gate_w, sel_rows)
+        up = qmm_expert_rows(xr, up_w, sel_rows)
+        d = qmm_expert_rows((silu(g) * up).to(COMPUTE_DTYPE), down_w, sel_rows)  # f32
+        if not cfg.moe_weight_before:
+            d = d * w_rows
+        mix = d.reshape(b, t, u, -1).sum(dim=2)
+    else:
+        def expert_ffn(xin, eid):
+            g = qmm(xin, _expert_slice(gate_w, eid))
+            up = qmm(xin, _expert_slice(up_w, eid))
+            return qmm((silu(g) * up).to(COMPUTE_DTYPE), _expert_slice(down_w, eid))
+
+        onehot = torch.nn.functional.one_hot(sel, e).float() * weights[..., None]  # [B,T,U,E]
+        if cfg.moe_weight_before:
+            w_full = onehot.sum(dim=2)  # [B, T, E]
+            presence = (w_full != 0).float()
+            outs = torch.stack([expert_ffn((x.float() * w_full[..., eid, None])
+                                           .to(COMPUTE_DTYPE), eid)
+                                for eid in range(e)], dim=2)  # [B, T, E, D]
+            mix = torch.einsum("bte,bted->btd", presence, outs.float())
+        else:
+            outs = torch.stack([expert_ffn(x, eid) for eid in range(e)], dim=2)
+            mix = torch.einsum("btue,bted->btd", onehot, outs.float())
+    if cfg.moe_shared_expert:
+        sh = ffn_dense(x, layer, cfg, "_shexp")
+        if cfg.moe_gate_shexp:
+            g = qmm(x, layer["ffn_gate_inp_shexp"])
+            sh = sh * torch.sigmoid(g.float()).to(sh.dtype)
+        mix = mix + sh.float()
+    return mix.to(x.dtype)
 
 
 def self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx: int,
@@ -222,6 +310,8 @@ def decode_layer(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx
                               angles)
     x = x + attn
     ffn_in = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
+    if cfg.n_expert > 0 and "ffn_gate_exps" in layer:
+        return x + ffn_moe(ffn_in, layer, cfg)
     return x + ffn_dense(ffn_in, layer, cfg)
 
 

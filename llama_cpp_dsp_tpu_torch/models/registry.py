@@ -76,4 +76,6 @@ def config_from_gguf(kv: dict[str, Any]) -> LlamaConfig:
         n_ctx_train=int(get(Keys.LLM.CONTEXT_LENGTH, 2048)),
         rms_eps=float(eps),
         rope=rope,
+        n_expert=int(get(Keys.LLM.EXPERT_COUNT, 0) or 0),
+        n_expert_used=int(get(Keys.LLM.EXPERT_USED_COUNT, 0) or 0),
     )

@@ -14,6 +14,11 @@ LAUNCHES: dict[str, int] = {
     "qmm_q4_k": 0,
     "qmm_q5_k": 0,
     "qmm_q6_k": 0,
+    "qmm_experts_q4_0": 0,
+    "qmm_experts_q8_0": 0,
+    "qmm_experts_q4_k": 0,
+    "qmm_experts_q5_k": 0,
+    "qmm_experts_q6_k": 0,
     "flash_decode": 0,
     "flash_decode_q8": 0,
     "flash_decode_paged": 0,

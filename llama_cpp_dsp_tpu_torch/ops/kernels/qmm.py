@@ -1,9 +1,11 @@
 """Packed dequant-matmul y = x · dequant(W)ᵀ for Q4_0, Q8_0, Q4_K, Q5_K and
 Q6_K weights.
 
-Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`). The CUDA
-kernels are in csrc/qmm.cu: a GEMV for B ≤ 8 (decode) and a tiled
-tensor-core kernel for larger B (prefill).
+Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`,
+`qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a GEMV for B ≤ 8
+(decode), a tiled tensor-core kernel for larger B (prefill), and the MoE
+selected-expert GEMV (`qmm_expert_rows`: row s against expert sel[s] of a
+stacked QTensor, reading only the selected experts' bytes).
 
 Tolerance: the kernels and `qmm_plain` agree with x · exact-f32-dequant(W)ᵀ
 to NMSE ≤ 5e-4 (the reference's MUL_MAT tolerance, as in
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ...gguf.constants import GGMLType
-from ...quant.dequant import dequant
+from ...quant.dequant import dequant, dequant_fields
 from . import LAUNCHES, aligned16, stream_handle
 
 
@@ -44,6 +46,34 @@ _ENTRY = {GGMLType.Q4_0: ("qmm_q4_0", 32), GGMLType.Q8_0: ("qmm_q8_0", 32),
           GGMLType.Q6_K: ("qmm_q6_k", 256)}
 
 
+_EXPERT_ENTRY = {kind: "qmm_experts" + entry[3:] for kind, (entry, _) in _ENTRY.items()}
+
+
+def _field_ptrs(w, x: torch.Tensor, name: str, lead: tuple = ()) -> list[int]:
+    """Check every field of w against the kind's (name, dtype, shape), with
+    `lead` dims in front (an expert stack's [E]); return the data pointers."""
+    n, k = w.shape
+    ptrs = []
+    for field, dtype, shape in _fields(w.kind, n, k):
+        a = w[field]
+        shape = (*lead, *shape)
+        if a.device != x.device:
+            raise ValueError(f"{name}: x on {x.device}, W.{field} on {a.device}")
+        if a.dtype != dtype or tuple(a.shape) != shape:
+            raise ValueError(f"{name}: bad {w.kind.name} field {field} {a.dtype}"
+                             f"{tuple(a.shape)}, want {dtype}{shape}")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"{name}: W.{field} must be contiguous and 16-byte aligned")
+        ptrs.append(a.data_ptr())
+    return ptrs
+
+
+def _entry(w, table: dict, name: str) -> str:
+    if w.kind not in table:
+        raise NotImplementedError(f"{name} kernel for {w.kind.name} (ROADMAP.md queue B, B1)")
+    return table[w.kind]
+
+
 def qmm_plain(x: torch.Tensor, w) -> torch.Tensor:
     """[..., K] · QTensor [N, K]ᵀ → [..., N] f32, plain PyTorch."""
     wd = dequant(w, torch.bfloat16).float()
@@ -52,27 +82,17 @@ def qmm_plain(x: torch.Tensor, w) -> torch.Tensor:
 
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """[..., K] · QTensor [N, K]ᵀ → [..., N] f32 (x taken as bf16)."""
+    if w.n_expert:
+        raise ValueError("qmm of an expert stack: take w.expert(eid) or qmm_expert_rows")
     if x.device.type == "cpu":
         return qmm_plain(x, w)
     from .build import check, lib
 
     n, k = w.shape
-    if w.kind not in _ENTRY:
-        raise NotImplementedError(f"qmm kernel for {w.kind.name} (ROADMAP.md queue B, B1)")
-    entry, block = _ENTRY[w.kind]
+    entry, block = _entry(w, _ENTRY, "qmm")
     if x.shape[-1] != k or k % block:
         raise ValueError(f"qmm: x {tuple(x.shape)} vs W {w.shape} (K % {block} == 0)")
-    ptrs = []
-    for name, dtype, shape in _fields(w.kind, n, k):
-        a = w[name]
-        if a.device != x.device:
-            raise ValueError(f"qmm: x on {x.device}, W.{name} on {a.device}")
-        if a.dtype != dtype or tuple(a.shape) != shape:
-            raise ValueError(f"qmm: bad {w.kind.name} field {name} {a.dtype}{tuple(a.shape)}, "
-                             f"want {dtype}{shape}")
-        if not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError(f"qmm: W.{name} must be contiguous and 16-byte aligned")
-        ptrs.append(a.data_ptr())
+    ptrs = _field_ptrs(w, x, "qmm")
     lead = x.shape[:-1]
     x2 = aligned16(x.reshape(-1, k).to(torch.bfloat16).contiguous())
     b = x2.shape[0]
@@ -83,3 +103,49 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
         check(rc, entry)
         LAUNCHES[entry] += 1
     return y.reshape(*lead, n)
+
+
+def qmm_expert_rows_plain(x: torch.Tensor, w, sel: torch.Tensor) -> torch.Tensor:
+    """x [S, K] · expert sel[s] of the stack w [E, N, K] → [S, N] f32, plain
+    PyTorch: the selected experts' fields gathered per row, dequantized and
+    rounded to bf16 like `qmm_plain`. Ids are clamped to [0, E), as the
+    kernel clamps them."""
+    s = x.shape[0]
+    n, k = w.shape
+    idx = sel.long().clamp(0, w.n_expert - 1)
+    rows = {name: a[idx].reshape(s * n, *a.shape[2:]) for name, a in w.arrays.items()}
+    wd = dequant_fields(w.kind, rows, torch.bfloat16).float().reshape(s, n, k)
+    return torch.bmm(wd, x.to(torch.bfloat16).float()[:, :, None])[:, :, 0]
+
+
+def qmm_expert_rows(x: torch.Tensor, w, sel: torch.Tensor) -> torch.Tensor:
+    """Per-row expert GEMV (ggml MUL_MAT_ID): y[s] = x[s] · dequant(W[sel[s]])ᵀ.
+    x [S, K] (taken as bf16), w a QTensor expert stack [E, N, K], sel [S]
+    int32 expert ids on x's device (never read by the host) → [S, N] f32."""
+    if not w.n_expert or x.ndim != 2 or tuple(sel.shape) != (x.shape[0],):
+        raise ValueError(f"qmm_expert_rows: x {tuple(x.shape)}, sel {tuple(sel.shape)}, "
+                         f"W n_expert {w.n_expert} (want x [S,K], sel [S], an expert stack)")
+    if x.device.type == "cpu":
+        return qmm_expert_rows_plain(x, w, sel)
+    from .build import check, lib
+
+    n, k = w.shape
+    entry = _entry(w, _EXPERT_ENTRY, "qmm_expert_rows")
+    block = _ENTRY[w.kind][1]
+    s = x.shape[0]
+    if x.shape[1] != k or k % block or s > 65535:
+        raise ValueError(f"qmm_expert_rows: x {tuple(x.shape)} vs W {w.shape} "
+                         f"(K % {block} == 0, S ≤ 65535)")
+    if sel.device != x.device or sel.dtype != torch.int32:
+        raise ValueError(f"qmm_expert_rows: sel must be int32 on {x.device}, "
+                         f"got {sel.dtype} on {sel.device}")
+    ptrs = _field_ptrs(w, x, "qmm_expert_rows", (w.n_expert,))
+    x2 = aligned16(x.to(torch.bfloat16).contiguous())
+    sel = sel.contiguous()
+    y = torch.empty(s, n, dtype=torch.float32, device=x.device)
+    if s:
+        rc = getattr(lib(), entry)(x2.data_ptr(), sel.data_ptr(), *ptrs, y.data_ptr(), s,
+                                   w.n_expert, n, k, stream_handle(x))
+        check(rc, entry)
+        LAUNCHES[entry] += 1
+    return y

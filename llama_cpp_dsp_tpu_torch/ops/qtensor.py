@@ -19,6 +19,11 @@ order (no TPU tile transpose): per 2-D weight [N, K], rows contiguous,
 These are the JAX package's field names, dtypes and shapes. Other kinds
 raise NotImplementedError: they are queued in ROADMAP.md (queue B, row B1,
 the other qmm bodies).
+
+An MoE expert stack [E, N, K] is one QTensor with `n_expert` = E: `shape`
+stays one expert's (N, K) and every field carries a leading [E] axis, as in
+the JAX package (`runtime/loader.py::_convert`). `expert(eid)` is one
+expert's plain 2-D QTensor (a view).
 """
 
 from __future__ import annotations
@@ -37,11 +42,13 @@ PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGML
 
 @dataclass
 class QTensor:
-    """Packed quantized 2-D tensor [N, K] (N = rows / output features)."""
+    """Packed quantized 2-D tensor [N, K] (N = rows / output features), or
+    a stack of n_expert of them (every field with a leading expert axis)."""
 
     kind: GGMLType
     shape: tuple[int, int]
     arrays: dict[str, torch.Tensor] = field(default_factory=dict)
+    n_expert: int = 0  # >0: every field has a leading [n_expert] axis
 
     def __getitem__(self, k: str) -> torch.Tensor:
         return self.arrays[k]
@@ -52,7 +59,14 @@ class QTensor:
 
     def to(self, device) -> "QTensor":
         return QTensor(self.kind, self.shape,
-                       {k: a.to(device) for k, a in self.arrays.items()})
+                       {k: a.to(device) for k, a in self.arrays.items()}, self.n_expert)
+
+    def expert(self, eid: int) -> "QTensor":
+        """Expert eid of a stack as a 2-D QTensor (views of the fields; JAX
+        models/llama.py::_expert_slice)."""
+        if not self.n_expert:
+            raise ValueError("expert() of a QTensor that is not an expert stack")
+        return QTensor(self.kind, self.shape, {k: a[eid] for k, a in self.arrays.items()})
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -60,13 +74,18 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 
 def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
-    """raw: uint8 packed GGUF data for a row-major [N, K] tensor."""
+    """raw: uint8 packed GGUF data for a row-major [N, K] tensor, or an
+    expert stack [E, N, K]: repacked as (E·N, K), then the expert axis is
+    put back onto every field."""
     if len(shape) == 1:
         shape = (1, shape[0])
+    if len(shape) == 3:
+        e, n, k = shape
+        qt = repack(raw, kind, (e * n, k))
+        return QTensor(kind, (n, k), {key: a.reshape(e, n, *a.shape[1:])
+                                      for key, a in qt.arrays.items()}, n_expert=e)
     if len(shape) != 2:
-        raise NotImplementedError(
-            f"repack of a {len(shape)}-D {kind.name} tensor (expert stacks: "
-            "ROADMAP.md queue A, MoE)")
+        raise NotImplementedError(f"repack of a {len(shape)}-D {kind.name} tensor")
     n, k = shape
     if kind == GGMLType.Q8_0:
         b = _blocks(raw, kind)

@@ -47,7 +47,8 @@ def convert_params_to_kernel(params: dict) -> dict:
     """Row-fuse the q|k|v and gate|up QTensors of each layer into one weight
     each ("attn_qkv_fused", "ffn_gateup_fused"), so each pair or triple is
     one kernel call. The port keeps GGUF block order, so fusing is a
-    concatenation of rows."""
+    concatenation of rows. Expert stacks are never fused (JAX's `fusable`);
+    they keep their expert axis for the selected-expert kernel."""
     params = dict(params)
     new_layers = []
     for layer in params["layers"]:
@@ -55,7 +56,7 @@ def convert_params_to_kernel(params: dict) -> dict:
         for fused_key, names in (("attn_qkv_fused", ("attn_q", "attn_k", "attn_v")),
                                  ("ffn_gateup_fused", ("ffn_gate", "ffn_up"))):
             ws = [layer.get(nm) for nm in names]
-            if not all(isinstance(w, QTensor) for w in ws):
+            if not all(isinstance(w, QTensor) and not w.n_expert for w in ws):
                 continue
             if len({(w.kind, w.shape[1]) for w in ws}) != 1:
                 continue

@@ -40,6 +40,11 @@ _LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    # MoE (Mixtral): the router [E, C] and the expert stacks [E, N, K]
+    "ffn_gate_inp.weight": "ffn_gate_inp",
+    "ffn_gate_exps.weight": "ffn_gate_exps",
+    "ffn_up_exps.weight": "ffn_up_exps",
+    "ffn_down_exps.weight": "ffn_down_exps",
 }
 
 _GLOBAL_TENSORS = {
@@ -63,14 +68,15 @@ class LoadedModel:
 
     @property
     def n_params(self) -> int:
-        """Weight elements (a packed tensor counts its logical [N, K])."""
+        """Weight elements (a packed tensor counts its logical [N, K], an
+        expert stack E·N·K)."""
         def count(tree):
             if isinstance(tree, dict):
                 return sum(count(v) for v in tree.values())
             if isinstance(tree, list):
                 return sum(count(v) for v in tree)
             if isinstance(tree, QTensor):
-                return tree.shape[0] * tree.shape[1]
+                return tree.shape[0] * tree.shape[1] * max(tree.n_expert, 1)
             return 0 if tree is None else tree.numel()
 
         return count(self.params)
@@ -96,13 +102,19 @@ def map_tensors(tree, fn):
     if isinstance(tree, list):
         return [map_tensors(v, fn) for v in tree]
     if isinstance(tree, QTensor):
-        return QTensor(tree.kind, tree.shape, {k: fn(a) for k, a in tree.arrays.items()})
+        return QTensor(tree.kind, tree.shape, {k: fn(a) for k, a in tree.arrays.items()},
+                       tree.n_expert)
     return None if tree is None else fn(tree)
 
 
 def _row_slice(w, start: int, stop: int):
-    """Rows [start:stop) of a weight — QTensor fields are row-major on axis 0."""
+    """Rows [start:stop) of a weight — QTensor fields are row-major on the
+    axis after an expert stack's leading one."""
     if isinstance(w, QTensor):
+        if w.n_expert:
+            return QTensor(w.kind, (stop - start, w.shape[1]),
+                           {k: a[:, start:stop].contiguous() for k, a in w.arrays.items()},
+                           w.n_expert)
         return QTensor(w.kind, (stop - start, w.shape[1]),
                        {k: a[start:stop].contiguous() for k, a in w.arrays.items()})
     return w[start:stop].contiguous()
@@ -175,10 +187,10 @@ def params_from_numpy(tree, device="cpu"):
         return None
     if hasattr(tree, "arrays") and hasattr(tree, "kind"):
         kind = GGMLType(int(tree.kind))
-        if kind not in PACKED_KINDS or getattr(tree, "n_expert", 0):
+        if kind not in PACKED_KINDS:
             raise NotImplementedError(
                 f"params_from_numpy: {kind.name} (ROADMAP.md queue B, row B1)")
         return QTensor(kind, tuple(int(s) for s in tree.shape),
                        {k: _dense_from_numpy(np.asarray(a)).to(device)
-                        for k, a in tree.arrays.items()})
+                        for k, a in tree.arrays.items()}, int(getattr(tree, "n_expert", 0)))
     return _dense_from_numpy(np.asarray(tree)).to(device)

@@ -16,7 +16,7 @@ import time
 
 from .. import resolve_device
 from ..runtime.context import LlamaContext
-from ..runtime.loader import load_model
+from ..runtime.loader import LoadedModel, load_model
 from ..runtime.sampling import make_chain
 
 
@@ -36,7 +36,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, model: LoadedModel | None = None) -> int:
+    """`model`: the GGUF named by -m, already loaded (a caller that runs the
+    CLI on a model it holds, as `serve.server.build` takes one)."""
     args = build_arg_parser().parse_args(argv)
     device = resolve_device(args.device)
     if not os.path.exists(args.model):
@@ -44,7 +46,7 @@ def main(argv=None) -> int:
         return 1
     t0 = time.perf_counter()
     try:
-        model = load_model(args.model)
+        model = model or load_model(args.model)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"error: failed to load model: {e}", file=sys.stderr)
         return 1

@@ -8,9 +8,16 @@ full-width 8B file is written in seconds; decode cost does not depend on
 weight values. The ftype picks each tensor's kind: every matrix Q4_0 or
 Q8_0, or llama.cpp's Q4_K_M / Q5_K_M mix (`tensor_type`). The vocab is a
 synthetic SPM one, or a llama-3-style byte-level BPE one ("llama-bpe").
+An MoE config (n_expert > 0, e.g. Mixtral-8x7B) gets an f32 router
+`ffn_gate_inp` [E, C] and expert stacks `ffn_{gate,up,down}_exps` [E, N, K]
+in place of the dense FFN. Each tensor's blocks are made when the writer
+reaches it, so the host holds one tensor at a time (a Mixtral file is
+~26 GB).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -37,6 +44,13 @@ LLAMA2_7B = LlamaConfig(
     n_ff=11008, n_vocab=32000, n_ctx_train=4096, rms_eps=1e-5,
     rope=RopeParams(n_dims=128, mode="norm", freq_base=10000.0),
 )
+# mistralai/Mixtral-8x7B-v0.1 config.json
+MIXTRAL_8X7B = LlamaConfig(
+    arch="llama", n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    n_ff=14336, n_vocab=32000, n_ctx_train=32768, rms_eps=1e-5,
+    rope=RopeParams(n_dims=128, mode="norm", freq_base=1000000.0),
+    n_expert=8, n_expert_used=2,
+)
 LLAMA2_13B = LlamaConfig(
     arch="llama", n_layers=40, n_embd=5120, n_heads=40, n_kv_heads=40, head_dim=128,
     n_ff=13824, n_vocab=32000, n_ctx_train=4096, rms_eps=1e-5,
@@ -48,13 +62,17 @@ CONFIGS = {
     "tinyllama-1.1b": TINYLLAMA_1B,
     "llama2-7b": LLAMA2_7B,
     "llama2-13b": LLAMA2_13B,
+    "mixtral-8x7b": MIXTRAL_8X7B,
 }
 
 
 # A block's d is uniform in [0, D_MAX): for Q4_0 the dequantized weights
-# then have an rms of about 0.054, and the K-quant maxima give the same rms
-# over random 6-bit scales or random int8 scales (Q6_K).
-_D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 0.02, GGMLType.Q4_K: 5.5e-4,
+# then have an rms of about 0.054, and the Q8_0 and K-quant maxima give the
+# same rms over int8 values (Q8_0: rms 74, against Q4_0's 4.6) and random
+# 6-bit scales or random int8 scales (Q6_K). A Q8_0 at Q4_0's maximum had
+# 16× the rms, and a model mixing it with other kinds (Mixtral's Q8_0
+# attn_k / attn_v) was far off a real one's scales.
+_D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
           GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5}
 # K-quant mins: each group's 6-bit min equals its scale and dmin = d·mean(q),
 # so every 32-element group d·sc·q − dmin·mn is zero-mean, as Q4_0's q − 8
@@ -64,10 +82,11 @@ _D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 0.02, GGMLType.Q4_K: 5.5e-4,
 _DMIN_PER_D = {GGMLType.Q4_K: 7.5, GGMLType.Q5_K: 15.5}
 
 
-def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, int]) -> np.ndarray:
-    """Random GGUF blocks (uint8) for a [N, K] tensor: random bits with the
-    f16 block scales set small and finite (`_D_MAX`, `_DMIN_PER_D`)."""
-    n_blocks = shape[0] * shape[1] // GGML_TYPE_TRAITS[kind].block_size
+def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) -> np.ndarray:
+    """Random GGUF blocks (uint8) for a [N, K] tensor (or [E, N, K]): random
+    bits with the f16 block scales set small and finite (`_D_MAX`,
+    `_DMIN_PER_D`)."""
+    n_blocks = math.prod(shape) // GGML_TYPE_TRAITS[kind].block_size
     raw = rng.integers(0, 256, size=n_blocks * DT[kind].itemsize, dtype=np.uint8)
     blocks = raw.view(DT[kind])
     d = rng.random(n_blocks, dtype=np.float32) * np.float32(_D_MAX[kind])
@@ -83,8 +102,9 @@ def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, int]) 
     return raw
 
 
-def synth_qtensor(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, int]) -> QTensor:
-    """Random packed blocks with small finite scales (half-sane dequant)."""
+def synth_qtensor(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
+    """Random packed blocks with small finite scales (half-sane dequant); a
+    3-D shape [E, N, K] gives an expert stack."""
     return repack(synth_raw(rng, kind, shape), kind, shape)
 
 
@@ -109,6 +129,17 @@ LLAMA3_CHAT_TEMPLATE = (
     "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
     "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
     "{% endif %}")
+# Mixtral-8x7B-Instruct-v0.1's chat template (tokenizer_config.json). It has
+# no system role: with a system message its jinja raises, and the JAX
+# package then takes the builtin family its markers name ("llama2"), which
+# is what the port renders without jinja.
+MIXTRAL_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}{% if (message['role'] == 'user') != "
+    "(loop.index0 % 2 == 0) %}{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{% endif %}{% if message['role'] == 'user' %}"
+    "{{ '[INST] ' + message['content'] + ' [/INST]' }}{% elif message['role'] == "
+    "'assistant' %}{{ message['content'] + eos_token}}{% else %}{{ raise_exception('Only "
+    "user and assistant roles are supported!') }}{% endif %}{% endfor %}")
 N_CONTROL = 256  # llama-3's control tokens: the last 256 ids (128000.. at full size)
 
 
@@ -162,30 +193,37 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 FTYPES = ("Q4_0", "Q8_0", "Q4_K_M", "Q5_K_M")
 
 
-def tensor_type(ftype: str, name: str, n_layers: int) -> GGMLType:
+def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0) -> GGMLType:
     """The kind of tensor `name` in a file of `ftype`. Q4_0 / Q8_0: every
     matrix that kind. Q4_K_M / Q5_K_M: llama_tensor_get_type's rows for a
-    dense llama with an output tensor (the JAX package's
-    tools/quantize.py:121-228): the LM head Q6_K, attn_v and ffn_down Q6_K in
-    the use_more_bits layers, the rest Q4_K / Q5_K."""
+    llama with an output tensor (the JAX package's
+    tools/quantize.py:121-228): the LM head Q6_K, attn_v and ffn_down (an
+    expert stack's ffn_down_exps too) Q6_K in the use_more_bits layers, the
+    rest Q4_K / Q5_K; with 8 experts (Mixtral) attn_k and attn_v Q8_0 and
+    attn_output Q5_K."""
     if ftype in ("Q4_0", "Q8_0"):
         return GGMLType[ftype]
     if ftype not in FTYPES:
         raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
     if name == "output.weight":
         return GGMLType.Q6_K
-    if name.startswith("blk.") and name.endswith(("attn_v.weight", "ffn_down.weight")):
+    if n_expert == 8 and name.endswith(("attn_k.weight", "attn_v.weight")):
+        return GGMLType.Q8_0
+    if n_expert == 8 and name.endswith("attn_output.weight"):
+        return GGMLType.Q5_K
+    if name.startswith("blk.") and ("attn_v.weight" in name or "ffn_down" in name):
         if use_more_bits(int(name.split(".")[1]), n_layers):
             return GGMLType.Q6_K
     return GGMLType.Q4_K if ftype == "Q4_K_M" else GGMLType.Q5_K
 
 
 def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
-                     vocab: str = "spm") -> None:
+                     vocab: str = "spm", chat_template: str | None = None) -> None:
     """Write `cfg` as a GGUF of random blocks whose kinds follow `ftype`
     (`tensor_type`: for Q4_0 / Q8_0 every matrix, the embedding and the LM
     head included), f32 norm weights of ones and a synthetic vocab: "spm",
-    or "llama-bpe" (`llama_bpe_vocab`)."""
+    or "llama-bpe" (`llama_bpe_vocab`, with llama-3's chat template). A
+    `chat_template` given is written as the GGUF's template."""
     rng = np.random.default_rng(seed)
     arch = cfg.arch
     w = GGUFWriter(path, arch)
@@ -199,6 +237,9 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     w.add_float32(f"{arch}.rope.freq_base", cfg.rope.freq_base)
     w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
     w.add_uint32(f"{arch}.vocab_size", cfg.n_vocab)
+    if cfg.n_expert:
+        w.add_uint32(f"{arch}.expert_count", cfg.n_expert)
+        w.add_uint32(f"{arch}.expert_used_count", cfg.n_expert_used)
     if vocab == "llama-bpe":
         for key, val in llama_bpe_vocab(cfg.n_vocab).items():
             w.add_kv(key, val)
@@ -210,12 +251,16 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
         w.add_kv("tokenizer.ggml.token_type", types)
     else:
         raise ValueError(f"vocab {vocab!r}: 'spm' or 'llama-bpe'")
+    if chat_template is not None:
+        w.add_kv("tokenizer.chat_template", chat_template)
 
-    def add_q(name: str, n: int, k: int) -> None:
-        kind = tensor_type(ftype, name, cfg.n_layers)
+    def add_q(name: str, n: int, k: int, e: int = 0) -> None:
+        """A packed [N, K] tensor, or an expert stack [E, N, K] for e > 0."""
+        kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert)
         if k % GGML_TYPE_TRAITS[kind].block_size:
             raise ValueError(f"{name}: K={k} is not a multiple of {kind.name}'s block")
-        w.add_tensor(name, synth_raw(rng, kind, (n, k)), ggml_type=kind, ne_shape=(k, n))
+        w.add_tensor(name, lambda: synth_raw(rng, kind, (max(e, 1), n, k)), ggml_type=kind,
+                     ne_shape=(k, n, e) if e else (k, n))
 
     c, hd = cfg.n_embd, cfg.head_dim
     ones = np.ones(c, np.float32)
@@ -228,6 +273,18 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
         add_q(p + "attn_v.weight", cfg.n_kv_heads * hd, c)
         add_q(p + "attn_output.weight", c, cfg.n_heads * hd)
         w.add_tensor(p + "ffn_norm.weight", ones)
+        if cfg.n_expert:  # the router stays f32, as llama.cpp leaves it
+            e = cfg.n_expert
+            # std 0.02 at Mixtral's width (as the JAX package's synth), scaled
+            # so that router logits spread alike at every width
+            std = np.float32(0.02 * math.sqrt(4096 / c))
+            w.add_tensor(p + "ffn_gate_inp.weight",
+                         lambda: (rng.standard_normal((e, c)) * std).astype(np.float32),
+                         ggml_type=GGMLType.F32, ne_shape=(c, e))
+            add_q(p + "ffn_gate_exps.weight", cfg.n_ff, c, e)
+            add_q(p + "ffn_up_exps.weight", cfg.n_ff, c, e)
+            add_q(p + "ffn_down_exps.weight", c, cfg.n_ff, e)
+            continue
         add_q(p + "ffn_gate.weight", cfg.n_ff, c)
         add_q(p + "ffn_up.weight", cfg.n_ff, c)
         add_q(p + "ffn_down.weight", c, cfg.n_ff)

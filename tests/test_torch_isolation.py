@@ -18,7 +18,8 @@ from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode, flash_decode_plain
 from llama_cpp_dsp_tpu_torch.ops.kernels.attn_fused import attn_decode_fused, attn_fused_plain
-from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
+from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import (qmm, qmm_expert_rows,
+                                                     qmm_expert_rows_plain, qmm_plain)
 from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams, _rope_angles
 from llama_cpp_dsp_tpu_torch.tools.synth import synth_qtensor
 
@@ -64,6 +65,22 @@ def test_port_imports_with_jax_blocked():
         rng = np.random.default_rng(0)
         for kind in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
             assert dequant(synth_qtensor(rng, kind, (4, 512))).isfinite().all()
+        # an expert stack, the selected-expert plain path and the MoE FFN
+        import torch
+        from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig, ffn_moe
+        from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm_expert_rows
+        stack = synth_qtensor(rng, GGMLType.Q4_K, (4, 64, 256))
+        x = torch.ones(2, 256)
+        assert qmm_expert_rows(x, stack, torch.tensor([3, 0], dtype=torch.int32)).shape == (2, 64)
+        cfg = LlamaConfig(arch="llama", n_layers=1, n_embd=256, n_heads=2, n_kv_heads=2,
+                          head_dim=128, n_ff=256, n_vocab=8, n_ctx_train=8, n_expert=4,
+                          n_expert_used=2)
+        layer = {"ffn_gate_inp": torch.ones(4, 256) * 0.01,
+                 "ffn_gate_exps": synth_qtensor(rng, GGMLType.Q4_K, (4, 256, 256)),
+                 "ffn_up_exps": synth_qtensor(rng, GGMLType.Q4_K, (4, 256, 256)),
+                 "ffn_down_exps": synth_qtensor(rng, GGMLType.Q6_K, (4, 256, 256))}
+        for t in (1, 5):  # the selected-expert branch, then dense-all
+            assert ffn_moe(torch.ones(1, t, 256), layer, cfg).isfinite().all()
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)
@@ -122,6 +139,9 @@ def test_wrappers_take_plain_version_on_cpu():
         w = synth_qtensor(rng, kind, (64, 256))
         x = t(3, 256)
         assert torch.equal(qmm(x, w), qmm_plain(x, w))
+        stack = synth_qtensor(rng, kind, (3, 64, 256))
+        sel = torch.tensor([2, 0, 2], dtype=torch.int32)
+        assert torch.equal(qmm_expert_rows(x, stack, sel), qmm_expert_rows_plain(x, stack, sel))
     q = t(2, 4, 128)
     k = t(2, 2, 16, 128).to(torch.bfloat16)
     v = t(2, 2, 16, 128).to(torch.bfloat16)

@@ -46,8 +46,13 @@ MODELS = {
     "q4_0_d128": dict(qtype=GGMLType.Q4_0, n_embd=256, n_heads=2, n_kv_heads=2),
     # F32, then JAX quantize_model to Q4_K_M; head_dim 128 with GQA: flash decode
     "q4_k_m": dict(qtype=GGMLType.F32, n_embd=256, n_ff=512, n_heads=2, n_kv_heads=1),
+    # MoE: decode (b·t·u ≤ E) takes the selected-expert branch, prefill dense-all
+    "moe_q4_0": dict(qtype=GGMLType.Q4_0, n_expert=4, n_expert_used=2),
+    # 8 experts through JAX quantize_model: llama.cpp's n_expert == 8 rows
+    "moe8_q4_k_m": dict(qtype=GGMLType.F32, n_embd=256, n_ff=256, n_heads=2, n_kv_heads=1,
+                        n_expert=8, n_expert_used=2),
 }
-KQUANT = {"q4_k_m": FType.MOSTLY_Q4_K_M}
+KQUANT = {"q4_k_m": FType.MOSTLY_Q4_K_M, "moe8_q4_k_m": FType.MOSTLY_Q4_K_M}
 LOGIT_RTOL = 2e-2
 
 
@@ -79,6 +84,24 @@ def test_q4_k_m_mix(gguf_paths):
     assert all("ffn_gateup_fused" in layer for layer in fused)
 
 
+def test_moe8_q4_k_m_mix_is_synth_tensor_type(gguf_paths):
+    """The JAX quantizer's Q4_K_M kinds for an 8-expert model are the rows
+    that the port's synthetic writer uses (tools/synth.py::tensor_type). The
+    router is the exception: llama.cpp keeps ffn_gate_inp f32 (as the
+    synthetic writer does), the JAX quantizer makes it Q4_K (ROADMAP.md
+    queue C); the port loads and runs either."""
+    from llama_cpp_dsp_tpu_torch.tools.synth import tensor_type
+
+    params = load_model(gguf_paths["moe8_q4_k_m"]).params
+    for i, layer in enumerate(params["layers"]):
+        for key, w in layer.items():
+            if isinstance(w, QTensor) and key != "ffn_gate_inp":
+                assert w.kind == tensor_type("Q4_K_M", f"blk.{i}.{key}.weight", 2, 8), key
+        assert layer["ffn_gate_exps"].n_expert == 8
+        assert layer["ffn_gate_inp"].kind == GGMLType.Q4_K
+    assert params["output"].kind == tensor_type("Q4_K_M", "output.weight", 2, 8)
+
+
 def _same_tree(a, b):
     if isinstance(a, dict):
         assert a.keys() == b.keys()
@@ -89,7 +112,8 @@ def _same_tree(a, b):
         for x, y in zip(a, b):
             _same_tree(x, y)
     elif isinstance(a, QTensor):
-        assert (a.kind, a.shape, a.arrays.keys()) == (b.kind, b.shape, b.arrays.keys())
+        assert (a.kind, a.shape, a.n_expert, a.arrays.keys()) == (
+            b.kind, b.shape, b.n_expert, b.arrays.keys())
         for k in a.arrays:
             assert torch.equal(a.arrays[k], b.arrays[k])
     else:
