@@ -8,7 +8,8 @@ Phases:
   build    nvcc builds csrc/*.cu for sm_90a (one process per source).
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, at the llama2-7B shapes (qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
-           Q4_K_M / Q5_K_M shapes), with its stated tolerance and, where it
+           Q4_K_M / Q5_K_M shapes; the Q4_1/Q5_0/Q5_1 kernels and MLA decode:
+           DeepSeek-V2-Lite's shapes too), with its stated tolerance and, where it
            has one, a planted fault that the tolerance must catch; times of
            kernel, plain version and a PyTorch yardstick call.
   small    a 2-layer head_dim-128 Q4_0 model: logits and greedy stream on
@@ -40,6 +41,14 @@ Phases:
            Mixtral-Instruct chat template): the CLI, the launches of one
            decode step (96 selected-expert GEMVs a token), a profiled chunk
            and 512-token prefill, then a four-slot server burst.
+  small_ds a 3-layer, 256-wide DeepSeek-V2 (MLA at DeepSeek-V2-Lite's
+           widths, 8 experts top-3 of width 352, a shared expert) in three
+           mixes (Q4_K_M, Q5_K_M, Q4_1): card against CPU over prefill and
+           decode (MLA decode, the Q4_1 / Q5_0 / Q5_1 kernels).
+  deepseek a full-width, full-depth DeepSeek-V2-Lite Q4_K_M GGUF (deepseek-llm
+           vocab and chat template): the CLI, the launches of one decode
+           step (27 MLA decodes, 78 selected-expert GEMVs), a profiled chunk
+           and 512-token prefill, then a four-slot server burst.
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -65,9 +74,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "llama3", "q5km",
-          "small_moe", "mixtral")
+          "small_moe", "mixtral", "small_ds", "deepseek")
 
 
 def fail(msg: str) -> None:
@@ -120,8 +130,10 @@ def n_copies(nbytes: int) -> int:
     return max(1, math.ceil(2.5 * L2_BYTES / max(nbytes, 1)))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or operations
+    over `peak` (the rate of their type), whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -180,18 +192,25 @@ QMM_NMSE_TOL = 5e-4
 def planted_qmm_fault(w):
     """The weight with a bug of one sub-block's size planted, or None for
     Q4_0/Q8_0: Q4_K/Q5_K with group 3's dmin·mn term dropped in every
-    superblock, Q6_K with 16-group 5's scale zeroed. The plain version on it
+    superblock, Q6_K with 16-group 5's scale zeroed, Q4_1 with its blocks'
+    m dropped, Q5_0/Q5_1 with their fifth bits dropped. The plain version on it
     must fail the NMSE limit, or the limit would not catch such a kernel."""
     from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
 
     key, idx, label = {"Q4_K": ("mn", 3, "group 3's dmin*mn dropped"),
                        "Q5_K": ("mn", 3, "group 3's dmin*mn dropped"),
-                       "Q6_K": ("sc", 5, "group 5's scale zeroed")}.get(w.kind.name,
-                                                                       (None, 0, ""))
+                       "Q6_K": ("sc", 5, "group 5's scale zeroed"),
+                       "Q4_1": ("m", None, "every block's m dropped"),
+                       "Q5_1": ("qh", None, "every fifth bit dropped"),
+                       "Q5_0": ("qh", None, "every fifth bit dropped")}.get(w.kind.name,
+                                                                            (None, 0, ""))
     if key is None:
         return None, ""
     bad = w[key].clone()
-    bad[:, :, idx] = 0
+    if idx is None:
+        bad.zero_()
+    else:
+        bad[:, :, idx] = 0
     return QTensor(w.kind, w.shape, {**w.arrays, key: bad}), label
 
 
@@ -277,14 +296,41 @@ MOE_DECODE_CALLS = {"q4_k": {(14336, 4096): 64, (4096, 14336): 16},
                     "q4_0": {(14336, 4096): 64, (4096, 14336): 32},
                     "q8_0": {(14336, 4096): 64, (4096, 14336): 32}}
 MOE_ROWS = (1, 2, 8)  # one token top-1, the CLI's top-2, four slots top-2
+# DeepSeek-V2-Lite: the expert stacks (gate/up [1408, 2048], down [2048,
+# 1408]: K = 1408 is not a multiple of 256), E = 64, top-6; rows: one token
+# top-1, a CLI token (S = 6), four slots (S = 24). Calls of each new B9 kind
+# per decode token (S = 6): Q5_0 down in the 14 layers that are not
+# use_more_bits (Q4_K_M); Q5_1 down there (Q5_K_M); a Q4_1 file runs all 78.
+DS_EXPERT_SHAPES = [(1408, 2048), (2048, 1408)]
+DS_EXPERT_ROWS = (1, 6, 24)
+DS_DECODE_CALLS = {"q5_0": {(2048, 1408): 14}, "q5_1": {(2048, 1408): 14},
+                   "q4_1": {(1408, 2048): 52, (2048, 1408): 26}}
+# the same stacks' K-quant and Q8_0 kinds on the DeepSeek-V2-Lite paths:
+# gate/up Q4_K (Q4_K_M) or Q5_K (Q5_K_M), down Q8_0 in the 12 use_more_bits
+# MoE layers (Q6_K → Q8_0 at K = 1408); checked, timed at Mixtral's shapes
+DS_EXPERT_KQ_SHAPES = {"q4_k": [(1408, 2048)], "q5_k": [(1408, 2048)], "q8_0": [(2048, 1408)]}
+# the legacy qmm kinds: a DeepSeek expert-shaped matrix (K = 1408) and the
+# 7B shapes, timed at the 7B decode calls (a llama2-7B of that kind) to set
+# them beside qmm_q4_0; Q8_0 at layer 0's ffn_down (K = 10944)
+LEGACY_QMM_SHAPES = [(2048, 1408), *QMM_SHAPES_7B]
+# DeepSeek-V2-Lite Q4_K_M's dense K-quant matrices: attn_q, attn_kv_a_mqa,
+# attn_output, the shared experts' gate / up (and Q4_K down where not
+# use_more_bits), layer 0's fused gate|up (2 × 10944 rows); Q6_K for the
+# shared experts' down in the use_more_bits layers and the LM head (vocab
+# 102400); checked, timed at the 8B shapes
+DS_QMM_SHAPES = {"q4_k": [(3072, 2048), (576, 2048), (2048, 2048), (2816, 2048),
+                          (2048, 2816), (21888, 2048)],
+                 "q6_k": [(2048, 2816), (102400, 2048)]}
 
 
-def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0):
-    """B9 against its plain version at the Mixtral shapes: per-row NMSE for
-    S rows with random ids (repeats and the last expert), a planted fault
-    (the plain version with the last row's expert swapped) that the limit
-    must catch, and the device time per decode token (S=2, the selected
-    experts cold in L2)."""
+def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
+                      shapes=MOE_SHAPES, rows=MOE_ROWS, decode_calls=None, s_time: int = 2):
+    """B9 against its plain version (by default at the Mixtral shapes): per-
+    row NMSE for S rows with random ids (repeats and the last expert), a
+    planted fault (the plain version with the last row's expert swapped)
+    that the limit must catch, and the device time per decode token (S =
+    s_time rows on distinct experts, cold in L2; `decode_calls` (N, K) →
+    calls per token, MOE_DECODE_CALLS of the kind by default)."""
     import numpy as np
     import torch
 
@@ -306,10 +352,12 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0):
         wd = dequant_fields(w.kind, rows, torch.bfloat16).reshape(s, n, k)
         return torch.bmm(wd, x.to(torch.bfloat16)[:, :, None])[:, :, 0]
 
-    for n, k in MOE_SHAPES:
+    if decode_calls is None:
+        decode_calls = MOE_DECODE_CALLS[kind_name]
+    for n, k in shapes:
         w = synth_qtensor(rng, kind, (n_expert, n, k)).to("cuda")
         per_expert = w.nbytes // n_expert
-        for s in MOE_ROWS:
+        for s in rows:
             ids = rng.integers(0, n_expert, s)
             ids[0] = ids[-1] = n_expert - 1  # the last expert, and a repeat for s > 1
             sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
@@ -331,31 +379,33 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0):
                 fail(f"{name} N={n} K={k} S={s} disagrees with its plain version")
             if not fault > QMM_NMSE_TOL:
                 fail(f"{name}: the tolerance would not catch a row's expert swapped")
-        calls = MOE_DECODE_CALLS[kind_name].get((n, k), 0)
-        if calls:  # S=2 (one token, top-2); sets rotate over the experts
-            x = torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
-            sets = [(x, w, torch.tensor([(2 * i) % n_expert, (2 * i + 1) % n_expert],
+        calls = decode_calls.get((n, k), 0)
+        if calls:  # S = s_time rows (one token's top-k); sets rotate over the experts
+            st = s_time
+            x = torch.randn(st, k, generator=gen, device="cuda").to(torch.bfloat16)
+            sets = [(x, w, torch.tensor([(st * i + j) % n_expert for j in range(st)],
                                         dtype=torch.int32, device="cuda"))
-                    for i in range(n_expert // 2)]
+                    for i in range(max(1, n_expert // st))]
             ms = time_ms(qmm_expert_rows, sets)
             pms = time_ms(qmm_expert_rows_plain, sets, iters=5)
             lms = time_ms(library, sets, iters=10)
-            print(f"  {name} N={n} K={k} S=2: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"dequant+bmm {lms:.4f} ms, {2 * per_expert / ms / 1e6:.0f} GB/s of selected "
+            print(f"  {name} N={n} K={k} S={st}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"dequant+bmm {lms:.4f} ms, {st * per_expert / ms / 1e6:.0f} GB/s of selected "
                   f"experts, {calls} calls/token")
             t["ms"] += calls * ms
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
-            t["bytes"] += calls * (2 * per_expert + x.numel() * 2 + 4 * 2 + 2 * n * 4)
-            t["flops"] += calls * 2.0 * 2 * n * k
+            t["bytes"] += calls * (st * per_expert + x.numel() * 2 + 4 * st + st * n * 4)
+            t["flops"] += calls * 2.0 * st * n * k
         del w
         torch.cuda.empty_cache()
     rec = records[name]
     rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), worst)
     rec["max_nmse"] = max(rec.get("max_nmse", 0.0), worst_nmse)
-    bms, by = bound_ms(t["bytes"], t["flops"])
-    rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=bms,
-               bound_by=by)
+    if t["ms"]:  # per decode token of the path that uses this kind
+        bms, by = bound_ms(t["bytes"], t["flops"])
+        rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                   bound_ms=bms, bound_by=by)
 
 
 FLASH_ATOL = 2e-3  # bf16 cache, f32 math in both; sums in another order
@@ -662,6 +712,77 @@ def check_attn_fused(records):
                        2.0 * (h + 2 * hkv) * d * kdim + 4.0 * h * (L + 1) * d)
     records["attn_fused"].update(max_abs_err=worst, max_nmse=worst_nmse, ms=32 * ms,
                                  plain_ms=32 * pms, library_ms=None, bound_ms=32 * bms,
+                                 bound_by=by)
+
+
+# MLA decode (B10) at DeepSeek-V2-Lite's shapes: H 16 heads, C = 512 + 64
+# padded to 640, r = 512; per slot the kernel against its plain version
+# (NMSE; f32 sums in another order), with planted faults: the last valid row
+# dropped, and (where every slot is shorter than S) the row past the length
+# counted
+MLA_H, MLA_C, MLA_R = 16, 640, 512
+MLA_NMSE_TOL = 1e-8
+
+
+def check_mla_decode(records):
+    import torch
+    import torch.nn.functional as F
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (mla_flash_decode,
+                                                                mla_flash_decode_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = 192 ** -0.5
+    worst = worst_nmse = 0.0
+    for s in (128, 512, 4096):
+        for lens in ([s], [s - 1], [1, 77, s // 2 + 3, s - 1]):
+            b = len(lens)
+            # q at a scale that keeps the softmax broad (score std ~0.55), so
+            # that a single row's weight is never negligible
+            q = torch.randn(b, MLA_H, MLA_C, generator=gen, device="cuda") * 0.3
+            c = torch.randn(b, 1, s, MLA_C, generator=gen, device="cuda").to(torch.bfloat16)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = mla_flash_decode(q, c, ln, scale=scale, r=MLA_R)
+            want = mla_flash_decode_plain(q, c, ln, scale=scale, r=MLA_R)
+            faults = {"last row dropped": mla_flash_decode_plain(q, c, ln - 1, scale=scale,
+                                                                 r=MLA_R)}
+            if max(lens) < s:
+                faults["the row past the length counted"] = mla_flash_decode_plain(
+                    q, c, ln + 1, scale=scale, r=MLA_R)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            worst_nmse = max(worst_nmse, check_slots(f"mla_decode S={s} lengths={lens}", got,
+                                                     want, faults, MLA_NMSE_TOL))
+    # time: one DeepSeek-V2-Lite layer (B=1) at 40 rows of a 512-row cache
+    # (the CLI cell's context), at a full 512-row and a full 4096-row cache,
+    # cold caches; per token ×27 layers at 512 rows
+    per_token = {}
+    for L, cap in ((40, 512), (512, 512), (4096, 4096)):
+        one = torch.tensor([L], dtype=torch.int32, device="cuda")
+        c_bytes = L * MLA_C * 2
+        sets = []
+        for _ in range(n_copies(cap * MLA_C * 2)):
+            q = torch.randn(1, MLA_H, MLA_C, generator=gen, device="cuda") * 0.3
+            c = torch.randn(1, 1, cap, MLA_C, generator=gen, device="cuda").to(torch.bfloat16)
+            sets.append((q, c))
+        ms = time_ms(lambda q, c: mla_flash_decode(q, c, one, scale=scale, r=MLA_R), sets)
+        pms = time_ms(lambda q, c: mla_flash_decode_plain(q, c, one, scale=scale, r=MLA_R),
+                      sets, iters=10)
+        # yardstick: SDPA with the latent expanded to H heads (K = c, V = c[..., :r])
+        lms = time_ms(lambda q, c: F.scaled_dot_product_attention(
+            q.to(torch.bfloat16)[:, :, None], c[:, :, :L].expand(-1, MLA_H, -1, -1),
+            c[:, :, :L, :MLA_R].expand(-1, MLA_H, -1, -1), scale=scale), sets, iters=10)
+        # f32 products, as the TPU kernel's Precision.HIGHEST
+        bms, by = bound_ms(c_bytes + MLA_H * MLA_C * 4 + MLA_H * MLA_R * 4,
+                           2.0 * MLA_H * L * (MLA_C + MLA_R), F32_FLOPS)
+        print(f"  mla_decode one layer, context {L} of {cap}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.5f} ms ({by}), "
+              f"{c_bytes / ms / 1e6:.0f} GB/s")
+        per_token[L] = (ms, pms, lms, bms, by)
+    ms, pms, lms, bms, by = per_token[512]
+    records["mla_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, ms=27 * ms,
+                                 plain_ms=27 * pms, library_ms=27 * lms, bound_ms=27 * bms,
                                  bound_by=by)
 
 
@@ -1027,8 +1148,8 @@ def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
 
     cfg = engine.cfg
     kv = "q8_0" if isinstance(engine.cache, (QuantKVCache, PagedQuantKVCache)) else "bf16"
-    cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.n_kv_heads,
-                          cfg.head_dim, kv, "cuda")
+    cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.kv_cache_heads,
+                          cfg.kv_cache_dim, kv, "cuda")
     n = len(prompt)
     t = engine._bucket(n) if as_engine else n
     toks = torch.zeros(1, t, dtype=torch.long)
@@ -1135,7 +1256,8 @@ def _check_moe_layers(engine, ref_moe: list, eng_moe: list, row: int, rel: float
           f"{MOE_LAYER_RTOL:g}); FFN input against the B=1 reference's, layers 0, 4, 8, ...: "
           f"{' '.join(f'{d:.1e}' for d in drift[::4])} (layer 0 tol {MOE_LAYER_RTOL:g}); "
           f"the logits' {rel:.3e} is that drift at the end (not gated)")
-    if not (len(layer_rel) == engine.cfg.n_layers and max(layer_rel) < MOE_LAYER_RTOL):
+    n_moe = sum("ffn_gate_exps" in layer for layer in engine.params["layers"])
+    if not (len(layer_rel) == n_moe and max(layer_rel) < MOE_LAYER_RTOL):
         fail("an MoE layer of the batched decode step disagrees with its B=1 rerun")
     if not drift[0] < MOE_LAYER_RTOL:
         fail("the batched decode step's first layer disagrees with the B=1 reference")
@@ -1146,7 +1268,8 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
     """The port's server in-process over each engine configuration: four
     concurrent requests through HTTP, two sharing a system prompt, the
     second of those sent once the first has decoded its first token (a
-    mixed prompt+decode step; a cached prefix). Chat requests go through the
+    mixed prompt+decode step, except on an MLA model, whose engine prefills
+    per slot; a cached prefix). Chat requests go through the
     GGUF's chat template (none: chatml)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -1230,8 +1353,10 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
               f"first token ms {ttft}; metrics {m}")
         require(counts, must, f"serve {name}")
         print(f"    packed prompt+decode steps: {len(mixed)}, decoding slots in them {mixed}")
-        if not any(mixed):
+        if engine._mixed_ok and not any(mixed):
             fail(f"serve {name}: no mixed prompt+decode step carried a decoding slot")
+        if not engine._mixed_ok and mixed:  # MLA prefills per slot, as JAX's engine
+            fail(f"serve {name}: an MLA engine took a packed prompt+decode step")
         if m["n_errors"]:
             fail(f"serve {name}: the engine counted {m['n_errors']} errors")
         if not m.get("prompt_tokens_cached", 0) >= min_cached:
@@ -1414,6 +1539,121 @@ def phase_mixtral(records: dict, path: Path, model) -> None:
                 step_must=MIXTRAL_B9)
 
 
+def _small_ds_config():
+    """A 3-layer, 256-wide DeepSeek-V2 with DeepSeek-V2-Lite's MLA widths
+    (16 heads, kv_lora_rank 512, rope 64, nope 128, v 128: the kernel's real
+    C = 640, r = 512), layer 0 dense, 8 experts top-3 of width 352 (K % 256
+    != 0: the fallback kinds), one shared expert, vocab 2048."""
+    import dataclasses
+
+    from llama_cpp_dsp_tpu_torch.tools.synth import DEEPSEEK_V2_LITE
+
+    return dataclasses.replace(DEEPSEEK_V2_LITE, n_layers=3, n_embd=256, n_ff=512,
+                               n_vocab=2048, n_ctx_train=4096, n_expert=8, n_expert_used=3)
+
+
+SMALL_DS_EXPERTS = (352, 1)  # routed expert width, shared experts
+SMALL_DS_MIXES = {  # ftype → the kernels its path runs
+    "Q4_K_M": ["mla_decode", "qmm_experts_q4_k", "qmm_experts_q5_0", "qmm_experts_q8_0",
+               "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "qmm_q5_0", "qmm_q8_0"],
+    "Q5_K_M": ["mla_decode", "qmm_experts_q5_k", "qmm_experts_q5_1", "qmm_experts_q8_0",
+               "qmm_q5_k", "qmm_q6_k", "qmm_q5_1", "qmm_q8_0"],
+    "Q4_1": ["mla_decode", "qmm_experts_q4_1", "qmm_q4_1"],
+}
+
+
+def phase_small_ds(records: dict) -> None:
+    """`_small_ds_config` at Q4_K_M, Q5_K_M and Q4_1 with a deepseek-llm
+    vocab: a ~30-token prefill (MLA's plain path, every expert over every
+    row through the tiled qmm), then decode (B10, the selected-expert
+    kernel, the GEMVs); card against CPU."""
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    cfg = _small_ds_config()
+    for ftype, must in SMALL_DS_MIXES.items():
+        path = ROOT / "build" / "smoke" / f"small-ds-{ftype.lower()}.gguf"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_synth_gguf(str(path), cfg, ftype, seed=6, vocab="deepseek-llm",
+                         experts=SMALL_DS_EXPERTS)
+        counts = small_model_check(
+            path, "The quick brown fox jumps over the lazy dog, then rests a while.", must,
+            f"small_ds {ftype}")
+        for k in must:  # a kernel's count comes from the first path that runs it
+            records[k]["launches"] = records[k]["launches"] or counts[k]
+
+
+DS_B9 = ["qmm_experts_q4_k", "qmm_experts_q5_0", "qmm_experts_q8_0"]
+SERVE_CONFIGS_DS = {"slots bf16": ([], ["mla_decode", *DS_B9])}
+
+
+def phase_deepseek(records: dict, path: Path, model) -> None:
+    """DeepSeek-V2-Lite Q4_K_M at full width and depth: the CLI on the loaded
+    model, the launches of one decode step by kernel (27 B10, 78 B9: gate,
+    up and down in 26 MoE layers), a profiled 8-step chunk, a profiled
+    512-token prefill (every expert over every row; the Q5_0 expert
+    matrices through the tiled qmm), then a four-slot server burst with
+    chats through the deepseek2 template, whose B=4 decode step runs B9 at
+    S = 24 and B10 at B = 4."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+    from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
+
+    cfg = model.cfg
+    n_moe = sum("ffn_gate_exps" in layer for layer in model.params["layers"])
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"],
+                     model)
+    counts = dict(LAUNCHES)
+    require(counts, ["mla_decode", *DS_B9, "qmm_q4_k", "qmm_q6_k", "qmm_q8_0"], "deepseek CLI")
+    for k in ("mla_decode", "qmm_experts_q5_0"):
+        records[k]["launches"] = counts[k]
+    print(f"  DeepSeek-V2-Lite Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
+    prompt = model.tokenizer.encode("hello")
+    ctx = LlamaContext(model, n_ctx=512)
+    first = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    ctx.eval_tokens([first])
+    torch.cuda.synchronize()
+    step = {k: v for k, v in LAUNCHES.items() if v}
+    n_b9 = sum(v for k, v in step.items() if k.startswith("qmm_experts_"))
+    print(f"  launches of one decode step: {step}; B10 {step.get('mla_decode', 0)}, "
+          f"selected-expert GEMVs {n_b9} ({n_moe} MoE layers)")
+    if step.get("mla_decode", 0) != cfg.n_layers or n_b9 != 3 * n_moe:
+        fail(f"one DeepSeek decode step launched B10 {step.get('mla_decode', 0)} times and B9 "
+             f"{n_b9} times, not {cfg.n_layers} and {3 * n_moe}")
+    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
+    print(f"  decode step at context {ctx.n_past}:")
+    reset_launches()
+    profile_chunk(ctx, stream[-1])  # three 8-step chunks: warm-up, timed, profiled
+    print(f"    port kernel launches per token: "
+          f"{ {k: v / 24 for k, v in LAUNCHES.items() if v} }")
+    long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 80)[:512]
+
+    def prefill():
+        ctx.n_past = 0
+        ctx.eval_tokens(long)
+
+    print(f"  prefill of {len(long)} tokens in one call:")
+    reset_launches()
+    profile_steps(prefill, 1)
+    counts = dict(LAUNCHES)  # three prefills: warm-up, timed, profiled
+    require(counts, ["qmm_q5_0", "qmm_q8_0", "qmm_q4_k", "qmm_q6_k"], "deepseek prefill")
+    records["qmm_q5_0"]["launches"] = counts["qmm_q5_0"] // 3
+    del ctx
+    torch.cuda.empty_cache()
+    chat = apply_chat_template(model.vocab.chat_template,
+                               [{"role": "system", "content": "Be brief."},
+                                {"role": "user", "content": "Hi"}])
+    print(f"  the GGUF's chat template renders a system+user chat as {chat!r}")
+    if chat != "Be brief.\n\nUser: Hi\n\nAssistant:":
+        fail("the DeepSeek-V2 template did not render through the deepseek2 family")
+    phase_serve(records, path, model, SERVE_CONFIGS_DS, n_ctx=2048, system_repeat=16,
+                step_must=["mla_decode", *DS_B9])
+
+
 def phase_q8(records: dict) -> None:
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.tools.synth import TINYLLAMA_1B, write_synth_gguf
@@ -1459,7 +1699,16 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     **{f"qmm_experts_{k}": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                             "llama_cpp_dsp_tpu/ops/pallas/qmm.py:781",
                             f"per-row nmse <= {QMM_NMSE_TOL:g}")
-       for k in ("q4_0", "q8_0", "q4_k", "q5_k", "q6_k")},
+       for k in ("q4_0", "q8_0", "q4_k", "q5_k", "q6_k", "q4_1", "q5_0", "q5_1")},
+    "qmm_q4_1": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:225", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q5_0": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:229", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q5_1": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:241", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "mla_decode": ("llama_cpp_dsp_tpu_torch/csrc/mla_decode.cu",
+                   "llama_cpp_dsp_tpu/ops/pallas/attention.py:623",
+                   f"per-slot nmse <= {MLA_NMSE_TOL:g}"),
 }
 
 
@@ -1499,6 +1748,8 @@ def main(argv=None) -> int:
     from llama_cpp_dsp_tpu_torch.tools.synth import MIXTRAL_CHAT_TEMPLATE
 
     files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm", None),
+             "ds": (smoke / "deepseek-v2-lite-q4_k_m.gguf", "deepseek-v2-lite", "Q4_K_M",
+                    "deepseek-llm", None),
              "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe", None),
              "mx": (smoke / "mixtral-8x7b-q4_k_m.gguf", "mixtral-8x7b", "Q4_K_M", "spm",
                     MIXTRAL_CHAT_TEMPLATE)}
@@ -1532,8 +1783,22 @@ def main(argv=None) -> int:
                                   check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
                                             records),
                                   *(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
+                                  *(check_qmm(k, LEGACY_QMM_SHAPES, (1, 8, 128),
+                                              DECODE_CALLS_7B, records)
+                                    for k in ("q4_1", "q5_0", "q5_1")),
+                                  check_qmm("q8_0", [(2048, 10944)], (1, 8, 128), {}, records),
+                                  *(check_qmm_experts(k, records, n_expert=64,
+                                                      shapes=DS_EXPERT_SHAPES,
+                                                      rows=DS_EXPERT_ROWS,
+                                                      decode_calls=DS_DECODE_CALLS[k], s_time=6)
+                                    for k in DS_DECODE_CALLS),
+                                  *(check_qmm_experts(k, records, n_expert=64, shapes=shapes,
+                                                      rows=DS_EXPERT_ROWS, decode_calls={})
+                                    for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
+                                  *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
+                                    for k, shapes in DS_QMM_SHAPES.items()),
                                   check_flash_decode(records), check_attn_fused(records),
-                                  check_decode_variants(records))),
+                                  check_decode_variants(records), check_mla_decode(records))),
              ("small", phase_small),
              ("main", lambda: phase_main(records, files["7b"][0], model_of("7b"))),
              ("serve", lambda: (phase_serve(records, files["7b"][0], model_of("7b")),
@@ -1545,7 +1810,10 @@ def main(argv=None) -> int:
              ("q5km", lambda: phase_q5km(records)),
              ("small_moe", lambda: phase_small_moe(records)),
              ("mixtral", lambda: (phase_mixtral(records, files["mx"][0], model_of("mx")),
-                                  done_with("mx")))]
+                                  done_with("mx"))),
+             ("small_ds", lambda: phase_small_ds(records)),
+             ("deepseek", lambda: (phase_deepseek(records, files["ds"][0], model_of("ds")),
+                                   done_with("ds")))]
     try:
         for name, fn in steps:
             if name in phases:

@@ -1,9 +1,11 @@
 // qmm.cu — packed dequant-matmul y[B,N] f32 = x[B,K] bf16 · dequant(W[N,K])ᵀ
-// for Q4_0, Q8_0, Q4_K, Q5_K and Q6_K weights kept packed in device memory.
+// for Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K weights kept packed
+// in device memory.
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/qmm.py::_kernel with the Q4_0 body
-// (_body_q4_0 via _q4_tile_dot), the Q8_0 body (_body_q8_0), and the K-quant
-// bodies _body_q4_K, _body_q5_K and _body_q6_K. It computes what those
+// (_body_q4_0 via _q4_tile_dot), the Q4_1 body (_body_q4_1), the Q5_0 and
+// Q5_1 bodies (_body_q5_0, _body_q5_1), the Q8_0 body (_body_q8_0), and the
+// K-quant bodies _body_q4_K, _body_q5_K and _body_q6_K. It computes what those
 // bodies compute, not their Mosaic plane layout: the weights stay in GGUF
 // block order, with the K-quants' 6-bit scales unpacked once at load
 // (ops/qtensor.py):
@@ -18,13 +20,14 @@
 //         nibble for i < 2, high for i >= 2, plus bits 2i..2i+1 of qh[l]
 //
 // Bound on this card: at decode (B <= 8) the packed weight bytes over the
-// memory rate. Per 256 weights the repacked layout moves 144 B (Q4_0), 272
-// (Q8_0), 152 (Q4_K; GGUF 144, the unpacked scales and f32 d/dmin cost 8),
-// 184 (Q5_K) and 212 (Q6_K); the arithmetic is ~2 operations per weight
-// element and activation row.
+// memory rate. Per 256 weights the repacked layout moves 144 B (Q4_0), 160
+// (Q4_1), 176 (Q5_0), 192 (Q5_1), 272 (Q8_0), 152 (Q4_K; GGUF 144, the
+// unpacked scales and f32 d/dmin cost 8), 184 (Q5_K) and 212 (Q6_K); the
+// arithmetic is ~2 operations per weight element and activation row.
 // Design: B <= 8 runs a GEMV, one warp per output row, lanes striding over
-// units of the row: a 32-element block for Q4_0/Q8_0 (one 16-byte load of
-// packed bits, two for Q8_0); a 64-element chunk for Q4_K/Q5_K (two 16-byte
+// units of the row: a 32-element block for Q4_0/Q8_0 and the Q4_1/Q5_0/Q5_1
+// structs (one 16-byte load of packed bits, two for Q8_0, plus the block's
+// 4-byte qh word for Q5_0/Q5_1); a 64-element chunk for Q4_K/Q5_K (two 16-byte
 // qs loads, consecutive lanes on consecutive chunks; Q5_K adds the 32-byte
 // qh of the superblock, shared by its four chunks through L1); for Q6_K a
 // 64-element unit of 16 consecutive l of one half, all four i (three
@@ -108,6 +111,89 @@ struct Legacy {  // Q4_0 / Q8_0 (common.cuh)
         const float s = __half2float(__ldg(d + (size_t)row * nb + kb));
 #pragma unroll
         for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(w[16 * h + i] * s);
+    }
+};
+
+// Q4_1 (M), Q5_0 (Q5) and Q5_1 (Q5 and M): 32-element blocks, Q4_0's nibble
+// order (byte j: element j low, j+16 high), Q5's fifth bits in a 32-bit
+// word per block (bit j: element j), d and m f16 per block. Q5_0 takes
+// w = d*(q-16), the _1 kinds w = d*q + m: the integer dot is scaled once by
+// d and the _1 kinds add m·Σx, as ggml's vec_dot does. K need not be a
+// multiple of 256 (DeepSeek-V2-Lite's expert rows have K = 1408): a row is
+// K/32 whole blocks, its qs stride K/2 bytes and qh stride K/8 bytes stay
+// 16- and 4-byte multiples, and d/m are read one f16 at a time.
+template <bool Q5, bool M>
+struct LegacyQ5M {
+    const uint8_t* qs;
+    const uint32_t* qh;  // Q5 only
+    const __half *d, *m;  // m: M only
+    static constexpr int UNIT = 32;
+
+    // integer values of block kb of a row: w[i] (i < 16) from byte i's low
+    // nibble, w[i+16] from its high one, 16 added where the fifth bit is set
+    __device__ __forceinline__ void unpack(size_t blk, float w[32]) const {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + blk * 16));
+        const uint32_t h = Q5 ? __ldg(qh + blk) : 0u;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const uint32_t byte = byte_of(q, i);
+            uint32_t lo = byte & 0x0fu, hi = byte >> 4;
+            if (Q5) {
+                lo |= ((h >> i) & 1u) << 4;
+                hi |= ((h >> (i + 16)) & 1u) << 4;
+            }
+            w[i] = (float)lo;
+            w[i + 16] = (float)hi;
+        }
+    }
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const size_t blk = (size_t)row * (K >> 5) + u;
+        float w[32];
+        unpack(blk, w);
+        const float dd = __half2float(__ldg(d + blk));
+        const float mm = M ? __half2float(__ldg(m + blk)) : 0.f;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+            const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)b * K + (size_t)u * 32);
+            float s = 0.f, xs = 0.f;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+                float xf[8];
+                bf16x8(__ldg(xp + v), xf);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const float wq = Q5 && !M ? w[8 * v + e] - 16.f : w[8 * v + e];
+                    s = fmaf(wq, xf[e], s);
+                    if (M) xs += xf[e];
+                }
+            }
+            acc[b] = fmaf(dd, s, acc[b]);
+            if (M) acc[b] = fmaf(mm, xs, acc[b]);
+        }
+    }
+
+    __device__ __forceinline__ LegacyQ5M at_expert(int e, int N, int K) const {
+        const size_t blk = (size_t)e * N * (K >> 5);  // blocks before expert e
+        return LegacyQ5M{qs + blk * 16, Q5 ? qh + blk : qh, d + blk, M ? m + blk : m};
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const size_t blk = (size_t)row * (K >> 5) + (k0 >> 5);
+        const int h = (k0 >> 4) & 1;
+        float w[32];
+        unpack(blk, w);
+        const float dd = __half2float(__ldg(d + blk));
+        const float mm = M ? __half2float(__ldg(m + blk)) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {  // q*d (+ m), two roundings as the plain version
+            const float q = w[16 * h + i] - (Q5 && !M ? 16.f : 0.f);
+            const float y = M ? __fadd_rn(__fmul_rn(q, dd), mm) : __fmul_rn(q, dd);
+            out[i] = __float2bfloat16(y);
+        }
     }
 };
 
@@ -440,7 +526,8 @@ int qmm_experts_launch(const W& w, const void* x, const void* sel, void* y, int 
 }  // namespace
 
 // x bf16 [B,K]; y f32 [B,N]; the weight fields as in the header comment
-// (Q4_0: qs u8 [N,K/2]; Q8_0: qs i8 [N,K]; both d f16 [N,K/32]). K % 32 == 0
+// (Q4_0: qs u8 [N,K/2]; Q8_0: qs i8 [N,K]; both d f16 [N,K/32]; Q4_1 adds
+// m f16 [N,K/32], Q5_0 qh u8 [N,K/8], Q5_1 both). K % 32 == 0
 // (K % 256 == 0 for the K-quants), every pointer 16-byte aligned (checked by
 // the Python wrapper). Each returns cudaGetLastError() after the launch.
 KERNELS_API int qmm_q4_0(const void* x, const void* qs, const void* d, void* y, int B, int N,
@@ -452,6 +539,29 @@ KERNELS_API int qmm_q4_0(const void* x, const void* qs, const void* d, void* y, 
 KERNELS_API int qmm_q8_0(const void* x, const void* qs, const void* d, void* y, int B, int N,
                          int K, void* stream) {
     const Legacy<Q8_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q4_1(const void* x, const void* qs, const void* d, const void* m, void* y,
+                         int B, int N, int K, void* stream) {
+    const LegacyQ5M<false, true> w{static_cast<const uint8_t*>(qs), nullptr,
+                                   static_cast<const __half*>(d), static_cast<const __half*>(m)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q5_0(const void* x, const void* qs, const void* qh, const void* d, void* y,
+                         int B, int N, int K, void* stream) {
+    const LegacyQ5M<true, false> w{static_cast<const uint8_t*>(qs),
+                                   static_cast<const uint32_t*>(qh),
+                                   static_cast<const __half*>(d), nullptr};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q5_1(const void* x, const void* qs, const void* qh, const void* d,
+                         const void* m, void* y, int B, int N, int K, void* stream) {
+    const LegacyQ5M<true, true> w{static_cast<const uint8_t*>(qs),
+                                  static_cast<const uint32_t*>(qh),
+                                  static_cast<const __half*>(d), static_cast<const __half*>(m)};
     return qmm_launch(w, x, y, B, N, K, stream);
 }
 
@@ -492,6 +602,32 @@ KERNELS_API int qmm_experts_q4_0(const void* x, const void* sel, const void* qs,
 KERNELS_API int qmm_experts_q8_0(const void* x, const void* sel, const void* qs, const void* d,
                                  void* y, int S, int E, int N, int K, void* stream) {
     const Legacy<Q8_0> w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(d)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q4_1(const void* x, const void* sel, const void* qs, const void* d,
+                                 const void* m, void* y, int S, int E, int N, int K,
+                                 void* stream) {
+    const LegacyQ5M<false, true> w{static_cast<const uint8_t*>(qs), nullptr,
+                                   static_cast<const __half*>(d), static_cast<const __half*>(m)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q5_0(const void* x, const void* sel, const void* qs, const void* qh,
+                                 const void* d, void* y, int S, int E, int N, int K,
+                                 void* stream) {
+    const LegacyQ5M<true, false> w{static_cast<const uint8_t*>(qs),
+                                   static_cast<const uint32_t*>(qh),
+                                   static_cast<const __half*>(d), nullptr};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q5_1(const void* x, const void* sel, const void* qs, const void* qh,
+                                 const void* d, const void* m, void* y, int S, int E, int N,
+                                 int K, void* stream) {
+    const LegacyQ5M<true, true> w{static_cast<const uint8_t*>(qs),
+                                  static_cast<const uint32_t*>(qh),
+                                  static_cast<const __half*>(d), static_cast<const __half*>(m)};
     return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
 }
 

@@ -187,6 +187,15 @@ class Keys:
         EXPERT_COUNT = "{arch}.expert_count"
         EXPERT_USED_COUNT = "{arch}.expert_used_count"
         EXPERT_FEED_FORWARD_LENGTH = "{arch}.expert_feed_forward_length"
+        # DeepSeek-V2 (the JAX package reads these as string literals:
+        # models/registry.py::_deepseek, ::_deepseek2)
+        EXPERT_SHARED_COUNT = "{arch}.expert_shared_count"
+        EXPERT_WEIGHTS_SCALE = "{arch}.expert_weights_scale"
+        EXPERT_WEIGHTS_NORM = "{arch}.expert_weights_norm"
+        EXPERT_GATING_FUNC = "{arch}.expert_gating_func"
+        LEADING_DENSE_BLOCK_COUNT = "{arch}.leading_dense_block_count"
+        ATTN_Q_LORA_RANK = "{arch}.attention.q_lora_rank"
+        ATTN_KV_LORA_RANK = "{arch}.attention.kv_lora_rank"
         ROPE_DIMENSION_COUNT = "{arch}.rope.dimension_count"
         ROPE_FREQ_BASE = "{arch}.rope.freq_base"
         ROPE_SCALING_TYPE = "{arch}.rope.scaling.type"

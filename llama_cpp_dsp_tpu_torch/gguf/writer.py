@@ -101,6 +101,12 @@ class GGUFWriter:
     def add_float32(self, key: str, value: float) -> None:
         self.add_kv(key, value, GGUFValueType.FLOAT32)
 
+    def add_bool(self, key: str, value: bool) -> None:
+        self.add_kv(key, bool(value), GGUFValueType.BOOL)
+
+    def add_string(self, key: str, value: str) -> None:
+        self.add_kv(key, value, GGUFValueType.STRING)
+
     # -- tensors ----------------------------------------------------------
     def add_tensor(
         self,

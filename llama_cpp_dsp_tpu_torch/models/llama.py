@@ -7,6 +7,9 @@ final norm → lm_head. Weights are QTensors (packed GGUF blocks) or dense
 tensors; matmuls go through ops.qmm, which launches the hand-written
 kernels on the card.
 
+DeepSeek-V2 layers (cfg.kv_lora_rank > 0) take multi-head latent attention
+(models/deepseek2.py) in place of self_attention.
+
 Decode (T=1) takes the fused attention kernel when `fused` is on, the
 cache is the bf16 `KVCache` and the layer fits its scope; otherwise the
 decode kernel of the cache's type (head_dim 128): flash_decode,
@@ -32,6 +35,7 @@ from ..ops import QTensor, qmm, rms_norm, silu, softmax_f32, take_rows
 from ..ops.rope import RopeParams, _rope_angles, apply_rope
 from ..runtime.kv_cache import KVCache, QuantKVCache, causal_mask
 from ..runtime.paged_kv import PagedKVCache, PagedQuantKVCache
+from .deepseek2 import mla_self_attention
 
 
 @dataclass(frozen=True)
@@ -56,6 +60,27 @@ class LlamaConfig:
     expert_gating: str = "softmax"  # "softmax" | "sigmoid"
     moe_scale: float = 1.0  # scale of the routed weights
     moe_weight_before: bool = False  # router weights scale the expert inputs
+    # DeepSeek-V2 multi-head latent attention (JAX models/llama.py:92-98)
+    q_lora_rank: int = 0  # 0: a direct q projection (DeepSeek-V2-Lite)
+    kv_lora_rank: int = 0  # > 0 enables MLA (models/deepseek2.py)
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    n_dense_layers: int = 0  # leading dense (non-MoE) layers
+
+    @property
+    def kv_cache_heads(self) -> int:
+        """KV-cache heads: MLA caches one latent "head"."""
+        return 1 if self.kv_lora_rank else self.n_kv_heads
+
+    @property
+    def kv_cache_dim(self) -> int:
+        """KV-cache row width: MLA caches [latent; roped k; 0-pad], padded
+        to a 128 multiple as the JAX package pads it (the pad lanes are zero
+        and drop out of every dot product)."""
+        if self.kv_lora_rank:
+            return -(-(self.kv_lora_rank + self.qk_rope_dim) // 128) * 128
+        return self.head_dim
 
 
 Params = dict[str, Any]
@@ -303,7 +328,9 @@ def decode_layer(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_idx
                  fused: bool, angles: dict, slot_ids: torch.Tensor | None = None):
     """One block; slot_ids set means a packed mixed ubatch (forward_packed)."""
     attn_in = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    if slot_ids is not None:
+    if cfg.kv_lora_rank:
+        attn = mla_self_attention(attn_in, layer, cfg, positions, cache, layer_idx, n_past)
+    elif slot_ids is not None:
         attn = packed_self_attention(attn_in, layer, cfg, positions, cache, layer_idx, slot_ids)
     else:
         attn = self_attention(attn_in, layer, cfg, positions, cache, layer_idx, n_past, fused,
@@ -348,7 +375,11 @@ def forward_packed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     llama.py:1032-1083): tokens, slot_ids, rows [P] (rows == the cache
     capacity for padding), out_idx [n_slots] the packed index whose logits
     each slot needs. One pass over the weights serves every slot; only the
-    out_idx rows reach the LM head. Returns logits [n_slots, n_vocab] f32."""
+    out_idx rows reach the LM head. Returns logits [n_slots, n_vocab] f32.
+    MLA (DeepSeek-V2) raises: the engine prefills it per slot, as JAX's does."""
+    if cfg.kv_lora_rank:
+        raise NotImplementedError("forward_packed with MLA: the JAX package never packs "
+                                  "MLA; the engine prefills it per slot")
     x = take_rows(params["token_embd"], tokens[None, :], dtype=COMPUTE_DTYPE)
     positions = rows[None, :]
     for i, layer in enumerate(params["layers"]):

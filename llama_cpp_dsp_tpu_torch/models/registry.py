@@ -1,12 +1,14 @@
 """GGUF metadata → LlamaConfig (counterpart of the JAX package's
-models/registry.py, cut down to the `llama` architecture).
+models/registry.py, cut down to the `llama` and `deepseek2` architectures).
 
-The other architectures of the JAX registry are queued in ROADMAP.md
-(queue A, slice 3).
+Per-architecture flags come from an override function, applied last, as
+the JAX registry applies its `ArchSpec.overrides`. The other architectures
+of the JAX registry are queued in ROADMAP.md (queue A, A3).
 """
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
@@ -15,27 +17,60 @@ from ..ops.rope import RopeParams
 from .llama import LlamaConfig
 
 
+def _deepseek(get) -> dict:
+    """llm_build_deepseek (JAX registry.py::_deepseek): leading dense layers,
+    a routed-weight scale, shared experts, no renormalisation."""
+    return {
+        "moe_shared_expert": True,
+        "moe_norm_weights": False,
+        "moe_scale": float(get(Keys.LLM.EXPERT_WEIGHTS_SCALE, 1.0)),
+        "n_dense_layers": int(get(Keys.LLM.LEADING_DENSE_BLOCK_COUNT, 1) or 1),
+    }
+
+
+def _deepseek2(get) -> dict:
+    """llm_build_deepseek2 (JAX registry.py::_deepseek2): MLA on top of
+    `_deepseek`; the rope dims are rope.dimension_count, the nope dims the
+    rest of key_length; gating func 2 (V3) is a sigmoid router."""
+    rope_dim = int(get(Keys.LLM.ROPE_DIMENSION_COUNT, 64) or 64)
+    key_len = int(get(Keys.LLM.ATTN_KEY_LENGTH, 192) or 192)
+    gating = int(get(Keys.LLM.EXPERT_GATING_FUNC, 1) or 1)
+    return {
+        **_deepseek(get),
+        "q_lora_rank": int(get(Keys.LLM.ATTN_Q_LORA_RANK, 0) or 0),
+        "kv_lora_rank": int(get(Keys.LLM.ATTN_KV_LORA_RANK, 512) or 512),
+        "qk_rope_dim": rope_dim,
+        "qk_nope_dim": key_len - rope_dim,
+        "v_head_dim": int(get(Keys.LLM.ATTN_VALUE_LENGTH, 128) or 128),
+        "moe_norm_weights": bool(get(Keys.LLM.EXPERT_WEIGHTS_NORM, False)),
+        "expert_gating": "sigmoid" if gating == 2 else "softmax",
+    }
+
+
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
+    overrides: Callable[[Callable], dict] | None = None  # get → LlamaConfig fields
     fused_gate_up: bool = False  # blk.N.ffn_up.weight holds [2*n_ff, C]
 
 
-ARCHS: dict[str, ArchSpec] = {"llama": ArchSpec("llama")}
+ARCHS: dict[str, ArchSpec] = {"llama": ArchSpec("llama"),
+                              "deepseek2": ArchSpec("deepseek2", _deepseek2)}
 
 
 def arch_spec(arch: str) -> ArchSpec:
     spec = ARCHS.get(arch)
     if spec is None:
         raise NotImplementedError(
-            f"architecture {arch!r}: only 'llama' is ported (ROADMAP.md queue A, slice 3)")
+            f"architecture {arch!r}: the port has {', '.join(map(repr, ARCHS))} "
+            "(ROADMAP.md queue A, A3)")
     return spec
 
 
 def config_from_gguf(kv: dict[str, Any]) -> LlamaConfig:
     """GGUF metadata → LlamaConfig (reference llama_model::load_hparams)."""
     arch = str(kv[Keys.General.ARCHITECTURE])
-    arch_spec(arch)
+    spec = arch_spec(arch)
 
     def get(template: str, default=None):
         return kv.get(template.format(arch=arch), default)
@@ -64,7 +99,7 @@ def config_from_gguf(kv: dict[str, Any]) -> LlamaConfig:
     eps = get(Keys.LLM.ATTN_LAYERNORM_RMS_EPS)
     if eps is None:
         eps = get(Keys.LLM.ATTN_LAYERNORM_EPS, 1e-5)
-    return LlamaConfig(
+    fields = dict(
         arch=arch,
         n_layers=int(get(Keys.LLM.BLOCK_COUNT)),
         n_embd=n_embd,
@@ -79,3 +114,6 @@ def config_from_gguf(kv: dict[str, Any]) -> LlamaConfig:
         n_expert=int(get(Keys.LLM.EXPERT_COUNT, 0) or 0),
         n_expert_used=int(get(Keys.LLM.EXPERT_USED_COUNT, 0) or 0),
     )
+    if spec.overrides:
+        fields.update(spec.overrides(get))  # per-arch overrides win, as in JAX
+    return LlamaConfig(**fields)

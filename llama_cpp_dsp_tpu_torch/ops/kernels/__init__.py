@@ -10,11 +10,17 @@ from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {
     "qmm_q4_0": 0,
+    "qmm_q4_1": 0,
+    "qmm_q5_0": 0,
+    "qmm_q5_1": 0,
     "qmm_q8_0": 0,
     "qmm_q4_k": 0,
     "qmm_q5_k": 0,
     "qmm_q6_k": 0,
     "qmm_experts_q4_0": 0,
+    "qmm_experts_q4_1": 0,
+    "qmm_experts_q5_0": 0,
+    "qmm_experts_q5_1": 0,
     "qmm_experts_q8_0": 0,
     "qmm_experts_q4_k": 0,
     "qmm_experts_q5_k": 0,
@@ -24,6 +30,7 @@ LAUNCHES: dict[str, int] = {
     "flash_decode_paged": 0,
     "flash_decode_paged_q8": 0,
     "attn_fused": 0,
+    "mla_decode": 0,
 }
 
 

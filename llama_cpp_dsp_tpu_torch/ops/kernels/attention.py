@@ -1,6 +1,7 @@
 """Decode attention (T=1) over the KV caches: bf16 (`flash_decode`), Q8_0
 rows (`flash_decode_q8`), bf16 pages (`flash_decode_paged`) and Q8_0 pages
-(`flash_decode_paged_q8`).
+(`flash_decode_paged_q8`); and DeepSeek-V2's latent attention over an MLA
+cache (`mla_flash_decode`, csrc/mla_decode.cu).
 
 Counterpart of the JAX package's ops/pallas/attention.py entries of the same
 names. All four run one templated CUDA kernel (csrc/flash_decode.cu):
@@ -13,7 +14,8 @@ Tolerances against the JAX kernels (plain versions, CPU): atol 2e-5 with
 f32 inputs and 2e-3 with a bf16 cache (tests/test_flash_attention.py), 1e-5
 for the q8 and paged forms (tests/test_quant_kv.py, tests/test_paged_kv.py);
 sums are taken in another order. Kernel against plain version on the card
-(chip_smoke.py): per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds.
+(chip_smoke.py): per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds;
+the same limit for `mla_flash_decode`.
 """
 
 from __future__ import annotations
@@ -196,3 +198,72 @@ def flash_decode_paged_q8(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None,
     n_splits, tail = _paged_tail("flash_decode_paged_q8", k_qs, tables, q)
     return _launch("flash_decode_paged_q8", q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, tables,
                    lengths, starts, n_splits, tail, scale, softcap)
+
+
+# ---------------------------------------------------------------------------
+# MLA latent-attention decode (DeepSeek-V2, models/deepseek2.py)
+# ---------------------------------------------------------------------------
+
+MLA_MIN_ROWS = 16  # latent rows a split takes at least
+MLA_MAX_HEADS = 16
+MLA_MAX_RANK = 512
+MLA_MAX_DIM = 768  # a cache row's width C: a lane holds q's words l, l + 32, ... (12 at most)
+
+
+def mla_flash_decode_plain(q, c, lengths, *, scale: float, r: int) -> torch.Tensor:
+    """q [B,H,C] (q_lat ⊕ q_rope ⊕ 0), latents c [B,1,S,C], lengths [B] →
+    [B,H,r] f32: softmax over the rows j < length of (q·scale)·c[j], then
+    the weighted sum of c[j, :r] (JAX mla_flash_decode's math)."""
+    s = c.shape[2]
+    rows = c[:, 0].float()  # [B, S, C]
+    sc = torch.einsum("bhc,bsc->bhs", q.float() * scale, rows)
+    valid = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    sc = sc.masked_fill(~valid[:, None, :], float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhs,bsr->bhr", p, rows[..., :r]) / l.clamp_min(1e-30)
+
+
+def mla_flash_decode(q, c, lengths, *, scale: float, r: int) -> torch.Tensor:
+    """Latent attention decode over an MLA cache (JAX ops/pallas/attention.py
+    ::mla_flash_decode): q [B,H,C] taken in f32, bf16 c [B,1,S,C] (the
+    cache layer's own buffer), lengths [B] → [B,H,r] f32. Any capacity S
+    and any length ≤ S."""
+    if q.device.type == "cpu":
+        return mla_flash_decode_plain(q, c, lengths, scale=scale, r=r)
+    from .build import check, lib
+
+    b, h, cdim = q.shape
+    if (c.dim() != 4 or c.shape[0] != b or c.shape[1] != 1 or c.shape[3] != cdim
+            or lengths.shape != (b,)):
+        raise ValueError(f"mla_flash_decode: q {tuple(q.shape)} c {tuple(c.shape)} "
+                         f"lengths {tuple(lengths.shape)} (want c [B,1,S,C], lengths [B])")
+    if h > MLA_MAX_HEADS or r > min(MLA_MAX_RANK, cdim) or r % 2 or cdim % 8 \
+            or cdim > MLA_MAX_DIM:
+        raise ValueError(f"mla_flash_decode: H={h} r={r} C={cdim} (the kernel takes "
+                         f"H ≤ {MLA_MAX_HEADS}, r ≤ min({MLA_MAX_RANK}, C), r even, "
+                         f"C % 8 == 0, C ≤ {MLA_MAX_DIM})")
+    if c.dtype != torch.bfloat16 or not c.is_contiguous() or c.data_ptr() % 16:
+        raise ValueError("mla_flash_decode: c must be bf16, contiguous and 16-byte aligned")
+    if c.device != q.device or lengths.device != q.device:
+        raise ValueError(f"mla_flash_decode: tensors on {c.device}, {lengths.device} "
+                         f"and {q.device}")
+    s = c.shape[2]
+    # blocks per slot: one wave over the SMs in all, no more than the
+    # capacity's runs of MLA_MIN_ROWS; each slot spreads its own valid rows
+    # over them on the card (the lengths stay there)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_splits = max(1, min(-(-s // MLA_MIN_ROWS), -(-sms // b)))
+    qf = aligned16(q.float().contiguous())  # read in 8-byte vectors
+    ln = lengths.to(torch.int32).contiguous()
+    out = torch.empty(b, h, r, dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty(b * h * n_splits * r, dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32, device=q.device)
+    rc = lib().mla_decode(qf.data_ptr(), c.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                          ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, cdim, r, s, n_splits,
+                          MLA_MIN_ROWS, float(scale), stream_handle(q))
+    check(rc, "mla_decode")
+    LAUNCHES["mla_decode"] += 1
+    return out

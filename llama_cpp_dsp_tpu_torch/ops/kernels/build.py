@@ -33,12 +33,18 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "qmm_q4_0": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qmm_q8_0": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "qmm_q4_1": [_P] * 5 + [_I] * 3 + [_P],  # x, qs, d, m, y
+    "qmm_q5_0": [_P] * 5 + [_I] * 3 + [_P],  # x, qs, qh, d, y
+    "qmm_q5_1": [_P] * 6 + [_I] * 3 + [_P],  # x, qs, qh, d, m, y
     "qmm_q4_k": [_P] * 7 + [_I] * 3 + [_P],  # x, qs, sc, mn, d, dmin, y
     "qmm_q5_k": [_P] * 8 + [_I] * 3 + [_P],  # x, qs, qh, sc, mn, d, dmin, y
     "qmm_q6_k": [_P] * 6 + [_I] * 3 + [_P],  # x, ql, qh, sc, d, y
     # MoE selected-expert GEMV: x, sel, the kind's fields, y; S, E, N, K
     "qmm_experts_q4_0": [_P] * 5 + [_I] * 4 + [_P],
     "qmm_experts_q8_0": [_P] * 5 + [_I] * 4 + [_P],
+    "qmm_experts_q4_1": [_P] * 6 + [_I] * 4 + [_P],
+    "qmm_experts_q5_0": [_P] * 6 + [_I] * 4 + [_P],
+    "qmm_experts_q5_1": [_P] * 7 + [_I] * 4 + [_P],
     "qmm_experts_q4_k": [_P] * 8 + [_I] * 4 + [_P],
     "qmm_experts_q5_k": [_P] * 9 + [_I] * 4 + [_P],
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],
@@ -46,6 +52,8 @@ _SIGNATURES = {
     "flash_decode_q8": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "flash_decode_paged": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
     "flash_decode_paged_q8": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    # q, c, lengths, out, ws_acc, ws_ml; B, H, C, r, S, split_rows; scale
+    "mla_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
     "attn_fused_q4_0": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _F, _P],
 }

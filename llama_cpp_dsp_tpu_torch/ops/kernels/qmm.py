@@ -1,5 +1,5 @@
-"""Packed dequant-matmul y = x · dequant(W)ᵀ for Q4_0, Q8_0, Q4_K, Q5_K and
-Q6_K weights.
+"""Packed dequant-matmul y = x · dequant(W)ᵀ for Q4_0, Q4_1, Q5_0, Q5_1,
+Q8_0, Q4_K, Q5_K and Q6_K weights.
 
 Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`,
 `qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a GEMV for B ≤ 8
@@ -31,6 +31,11 @@ def _fields(kind: GGMLType, n: int, k: int) -> list[tuple[str, torch.dtype, tupl
         return [("qs", torch.uint8, (n, k // 2)), ("d", torch.float16, (n, k // 32))]
     if kind == GGMLType.Q8_0:
         return [("qs", torch.int8, (n, k)), ("d", torch.float16, (n, k // 32))]
+    if kind in (GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        f16 = (n, k // 32)
+        qh = [("qh", torch.uint8, (n, k // 8))] if kind != GGMLType.Q4_1 else []
+        m = [("m", torch.float16, f16)] if kind != GGMLType.Q5_0 else []
+        return [("qs", torch.uint8, (n, k // 2)), *qh, ("d", torch.float16, f16), *m]
     if kind == GGMLType.Q6_K:
         return [("ql", torch.uint8, (n, k // 2)), ("qh", torch.uint8, (n, k // 4)),
                 ("sc", torch.int8, (n, s, 16)), ("d", torch.float32, (n, s))]
@@ -41,7 +46,9 @@ def _fields(kind: GGMLType, n: int, k: int) -> list[tuple[str, torch.dtype, tupl
 
 
 # kind → (C entry, the K multiple its blocks need)
-_ENTRY = {GGMLType.Q4_0: ("qmm_q4_0", 32), GGMLType.Q8_0: ("qmm_q8_0", 32),
+_ENTRY = {GGMLType.Q4_0: ("qmm_q4_0", 32), GGMLType.Q4_1: ("qmm_q4_1", 32),
+          GGMLType.Q5_0: ("qmm_q5_0", 32), GGMLType.Q5_1: ("qmm_q5_1", 32),
+          GGMLType.Q8_0: ("qmm_q8_0", 32),
           GGMLType.Q4_K: ("qmm_q4_k", 256), GGMLType.Q5_K: ("qmm_q5_k", 256),
           GGMLType.Q6_K: ("qmm_q6_k", 256)}
 

@@ -5,6 +5,11 @@ order (no TPU tile transpose): per 2-D weight [N, K], rows contiguous,
 
 - kind=Q4_0 : qs uint8 [N, K/2], d f16 [N, K/32]   (x = d*(q-8); byte j of a
               32-block holds element j in its low and j+16 in its high nibble)
+- kind=Q4_1 : qs u8 [N, K/2], d,m f16 [N, K/32]    (x = d*q + m; Q4_0's nibbles)
+- kind=Q5_0 : the Q4_0 fields + qh u8 [N, K/8]      (x = d*(q-16); the block's
+              four qh bytes are its little-endian 32-bit word, bit j the fifth
+              bit of element j)
+- kind=Q5_1 : the Q5_0 fields + m f16 [N, K/32]     (x = d*q + m)
 - kind=Q8_0 : qs int8 [N, K],    d f16 [N, K/32]   (x = d*q)
 - kind=Q4_K : qs u8 [N, K/2], sc,mn u8 [N, S, 8], d,dmin f32 [N, S]
               (S = K/256; x = (d*sc)*q - dmin*mn over 32-element groups; in
@@ -37,7 +42,8 @@ from ..gguf.constants import QK_K, GGMLType
 from ..quant.blocks import _blocks, _f32, unpack_scale_min_k4
 
 # GGUF kinds with a packed layout (and a hand-written qmm kernel) in the port
-PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
+                GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
 @dataclass
@@ -93,12 +99,15 @@ def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
             "qs": _t(b["qs"].reshape(n, k)),
             "d": _t(b["d"].reshape(n, k // 32)),
         })
-    if kind == GGMLType.Q4_0:
+    if kind in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
         b = _blocks(raw, kind)
-        return QTensor(kind, (n, k), {
-            "qs": _t(b["qs"].reshape(n, k // 2)),
-            "d": _t(b["d"].reshape(n, k // 32)),
-        })
+        out = {"qs": _t(b["qs"].reshape(n, k // 2))}
+        if kind in (GGMLType.Q5_0, GGMLType.Q5_1):
+            out["qh"] = _t(b["qh"].copy().view(np.uint8).reshape(n, k // 8))
+        out["d"] = _t(b["d"].reshape(n, k // 32))
+        if kind in (GGMLType.Q4_1, GGMLType.Q5_1):
+            out["m"] = _t(b["m"].reshape(n, k // 32))
+        return QTensor(kind, (n, k), out)
     if kind in (GGMLType.Q4_K, GGMLType.Q5_K):
         b = _blocks(raw, kind)
         s = k // QK_K

@@ -1,5 +1,5 @@
-"""GGUF block records of the kinds this port runs (Q4_0, Q8_0, Q4_K, Q5_K,
-Q6_K).
+"""GGUF block records of the kinds this port runs (Q4_0, Q4_1, Q5_0, Q5_1,
+Q8_0, Q4_K, Q5_K, Q6_K).
 
 The block dtypes, `_blocks`, `_f32` and `unpack_scale_min_k4` of the JAX
 package's quant/ref_numpy.py, cut down to the kinds on the port's path; the
@@ -14,6 +14,9 @@ from ..gguf.constants import GGML_TYPE_TRAITS, GGMLType
 
 DT = {
     GGMLType.Q4_0: np.dtype([("d", "<f2"), ("qs", "u1", (16,))]),
+    GGMLType.Q4_1: np.dtype([("d", "<f2"), ("m", "<f2"), ("qs", "u1", (16,))]),
+    GGMLType.Q5_0: np.dtype([("d", "<f2"), ("qh", "<u4"), ("qs", "u1", (16,))]),
+    GGMLType.Q5_1: np.dtype([("d", "<f2"), ("m", "<f2"), ("qh", "<u4"), ("qs", "u1", (16,))]),
     GGMLType.Q8_0: np.dtype([("d", "<f2"), ("qs", "i1", (32,))]),
     GGMLType.Q4_K: np.dtype(
         [("d", "<f2"), ("dmin", "<f2"), ("scales", "u1", (12,)), ("qs", "u1", (128,))]),

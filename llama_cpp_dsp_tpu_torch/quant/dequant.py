@@ -1,7 +1,7 @@
 """Torch dequantization of QTensors (counterpart of quant/jax_dequant.py).
 
-Bit-exact with the reference dequantize_row_q4_0 / _q8_0 / _q4_K / _q5_K /
-_q6_K (the JAX package's quant/ref_numpy.py): the products are taken in f32
+Bit-exact with the reference dequantize_row_q4_0 / _q4_1 / _q5_0 / _q5_1 /
+_q8_0 / _q4_K / _q5_K / _q6_K (the JAX package's quant/ref_numpy.py): the products are taken in f32
 in the same order. Used by the plain qmm version and the embedding row
 gather.
 """
@@ -34,6 +34,21 @@ def dequant_fields(kind: GGMLType, f: dict[str, torch.Tensor],
             b = qs.reshape(n, g, 16)
             q = torch.cat([b & 0x0F, b >> 4], dim=-1).to(torch.int32) - 8
             y = q.float() * df
+        return y.reshape(n, g * 32).to(dtype)
+    if kind in (GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        qs, d = f["qs"], f["d"]
+        n, g = qs.shape[0], d.shape[-1]
+        b = qs.reshape(n, g, 16)
+        q = torch.cat([b & 0x0F, b >> 4], dim=-1).to(torch.int32)  # [N, G, 32]
+        if kind != GGMLType.Q4_1:  # bit j of a block's 32-bit qh: element j's fifth bit
+            qh = f["qh"].reshape(n, g, 4).to(torch.int32)
+            j = torch.arange(32, device=q.device)
+            q = q | (((qh[:, :, j // 8] >> (j % 8)) & 1) << 4)
+        df = d.float()[:, :, None]
+        if kind == GGMLType.Q5_0:
+            y = (q - 16).float() * df
+        else:
+            y = q.float() * df + f["m"].float()[:, :, None]
         return y.reshape(n, g * 32).to(dtype)
     if kind in (GGMLType.Q4_K, GGMLType.Q5_K):
         n, s = f["d"].shape

@@ -109,8 +109,8 @@ class LlamaContext:
         self.fused_attn = fused_attn
         self.params = convert_params_to_kernel(
             map_tensors(model.params, lambda t: t.to(self.device)))
-        self.cache = KVCache.create(self.cfg.n_layers, 1, n_ctx, self.cfg.n_kv_heads,
-                                    self.cfg.head_dim, self.device)
+        self.cache = KVCache.create(self.cfg.n_layers, 1, n_ctx, self.cfg.kv_cache_heads,
+                                    self.cfg.kv_cache_dim, self.device)
         self.generator = torch.Generator(device=self.device)
         self.n_past = 0
         self.perf = PerfCounters()

@@ -124,10 +124,21 @@ class Engine:
         self.n_ctx = n_ctx_per_slot
         self.prefill_buckets = [b for b in prefill_buckets if b <= n_ctx_per_slot] or [
             n_ctx_per_slot]
+        kv_dtype = {"q8": "q8_0"}.get(kv_dtype, kv_dtype)
+        # JAX engine.py::_mixed_ok: MLA never takes the packed prompt+decode
+        # pass (per-slot prefill, then the batched decode step), so it has
+        # no paged layout
+        self._mixed_ok = not cfg.kv_lora_rank
+        if kv_layout == "paged" and not self._mixed_ok:
+            raise ValueError(f"kv_layout='paged' requires the packed decoder path "
+                             f"(arch {cfg.arch} runs MLA)")
+        if cfg.kv_lora_rank and kv_dtype != "bf16":
+            raise NotImplementedError(
+                f"-ctk {kv_dtype} with MLA: the port's MLA cache is bf16 "
+                "(ROADMAP.md queue A5)")
         self.params = convert_params_to_kernel(
             map_tensors(model.params, lambda t: t.to(self.device)))
         self.kv_layout = kv_layout
-        kv_dtype = {"q8": "q8_0"}.get(kv_dtype, kv_dtype)
         if kv_layout == "paged":
             blocks = -(-n_ctx_per_slot // page_size)
             self.n_ctx = blocks * page_size
@@ -139,11 +150,11 @@ class Engine:
                     f"paged KV -ctk {kv_dtype}: the port pages bf16 and q8_0 rows "
                     "(ROADMAP.md queue A5)")
             cls = PagedQuantKVCache if kv_dtype == "q8_0" else PagedKVCache
-            self.cache = cls.create(cfg.n_layers, n_pages, n_slots, blocks, cfg.n_kv_heads,
-                                    cfg.head_dim, page_size=page_size, device=self.device)
+            self.cache = cls.create(cfg.n_layers, n_pages, n_slots, blocks, cfg.kv_cache_heads,
+                                    cfg.kv_cache_dim, page_size=page_size, device=self.device)
         elif kv_layout == "slots":
-            self.cache = make_kv_cache(cfg.n_layers, n_slots, n_ctx_per_slot, cfg.n_kv_heads,
-                                       cfg.head_dim, kv_dtype, device=self.device)
+            self.cache = make_kv_cache(cfg.n_layers, n_slots, n_ctx_per_slot, cfg.kv_cache_heads,
+                                       cfg.kv_cache_dim, kv_dtype, device=self.device)
         else:
             raise ValueError(f"kv_layout {kv_layout!r}: 'slots' or 'paged'")
         self.slots = [_Slot(i) for i in range(n_slots)]
@@ -289,14 +300,15 @@ class Engine:
 
         When prompt work and generating slots coexist (or on the paged
         layout, which has no per-slot contiguous view), one packed program
-        serves them together; otherwise one prompt chunk per iteration
-        (round-robin over prompt slots), then one batched decode."""
+        serves them together; otherwise, and always for MLA, one prompt chunk
+        per iteration (round-robin over prompt slots), then one batched
+        decode."""
         self._assign_slots()
         worked = False
 
         gen = [s for s in self.slots if s.state == SlotState.GENERATING]
         has_prompt = any(s.state == SlotState.PROMPT for s in self.slots)
-        if has_prompt and (gen or self.kv_layout == "paged"):
+        if self._mixed_ok and has_prompt and (gen or self.kv_layout == "paged"):
             busy = [s for s in self.slots if s.state != SlotState.FREE]
             with self._kv_fence(busy):
                 self._mixed_step(gen)

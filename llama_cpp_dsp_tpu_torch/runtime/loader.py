@@ -1,8 +1,10 @@
 """Model loader: GGUF file → (config, params, vocab, tokenizer).
 
 Counterpart of the JAX package's runtime/loader.py (`load_model`,
-`_split_fused`, `LoadedModel`) for the llama architecture. Tensors are
-repacked into QTensors on the CPU; LlamaContext moves them to its device.
+`_split_fused`, `LoadedModel`) for the llama and deepseek2 architectures.
+Tensors are repacked into QTensors on the CPU; LlamaContext moves them to
+its device. An MLA model's attn_kv_b is split into bf16 W_uk / W_uv here,
+once (`models/deepseek2.py::split_kv_b`).
 
 `params_from_numpy` carries the JAX loader's parameter tree (numpy arrays
 and JAX QTensors, read by duck typing: `.kind`, `.shape`, `.arrays`) over to
@@ -20,6 +22,7 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFModel
+from ..models.deepseek2 import split_kv_b
 from ..models.llama import LlamaConfig
 from ..models.registry import arch_spec, config_from_gguf
 from ..ops.qtensor import PACKED_KINDS, QTensor, from_gguf_tensor
@@ -45,6 +48,18 @@ _LAYER_TENSORS = {
     "ffn_gate_exps.weight": "ffn_gate_exps",
     "ffn_up_exps.weight": "ffn_up_exps",
     "ffn_down_exps.weight": "ffn_down_exps",
+    # shared experts (DeepSeek-V2), with an optional sigmoid gate
+    "ffn_gate_inp_shexp.weight": "ffn_gate_inp_shexp",
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
+    # DeepSeek-V2 MLA (the reference's LLM_ARCH_DEEPSEEK2 tensor table)
+    "attn_q_a.weight": "attn_q_a",
+    "attn_q_a_norm.weight": "attn_q_a_norm",
+    "attn_q_b.weight": "attn_q_b",
+    "attn_kv_a_mqa.weight": "attn_kv_a_mqa",
+    "attn_kv_a_norm.weight": "attn_kv_a_norm",
+    "attn_kv_b.weight": "attn_kv_b",
 }
 
 _GLOBAL_TENSORS = {
@@ -156,6 +171,8 @@ def load_model(path: str) -> LoadedModel:
                 continue
         log.warning("unmapped tensor %s", name)
     _split_fused(params, cfg, spec)
+    if cfg.kv_lora_rank:  # MLA: W_uk / W_uv split out of attn_kv_b once
+        split_kv_b(params, cfg)
     ff = params.pop("rope_freqs", None)
     if ff is not None:  # shared by every layer (same tensor, no copy)
         for layer in params["layers"]:

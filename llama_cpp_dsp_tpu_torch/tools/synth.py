@@ -5,14 +5,17 @@ Counterpart of the JAX package's tools/synth.py (`CONFIGS`,
 GGUF file so the port's loader, CLI and server run on it. The blocks are
 random bits with small finite f16 scales — no quantizer runs — so a
 full-width 8B file is written in seconds; decode cost does not depend on
-weight values. The ftype picks each tensor's kind: every matrix Q4_0 or
-Q8_0, or llama.cpp's Q4_K_M / Q5_K_M mix (`tensor_type`). The vocab is a
-synthetic SPM one, or a llama-3-style byte-level BPE one ("llama-bpe").
-An MoE config (n_expert > 0, e.g. Mixtral-8x7B) gets an f32 router
-`ffn_gate_inp` [E, C] and expert stacks `ffn_{gate,up,down}_exps` [E, N, K]
-in place of the dense FFN. Each tensor's blocks are made when the writer
-reaches it, so the host holds one tensor at a time (a Mixtral file is
-~26 GB).
+weight values. The ftype picks each tensor's kind: every matrix Q4_0, Q4_1
+or Q8_0, or llama.cpp's Q4_K_M / Q5_K_M mix (`tensor_type`, with its
+block-size fallback for rows whose K is not a multiple of 256). The vocab
+is a synthetic SPM one, or a byte-level BPE one in the style of llama-3
+("llama-bpe") or DeepSeek ("deepseek-llm"). An MoE config (n_expert > 0,
+e.g. Mixtral-8x7B) gets an f32 router `ffn_gate_inp` [E, C] and expert
+stacks `ffn_{gate,up,down}_exps` [E, N, K] in place of the dense FFN; a
+DeepSeek-V2 config (arch "deepseek2") gets the MLA attention tensors, a
+dense FFN in its leading layers and shared experts `ffn_*_shexp`. Each
+tensor's blocks are made when the writer reaches it, so the host holds one
+tensor at a time (a Mixtral file is ~26 GB).
 """
 
 from __future__ import annotations
@@ -51,6 +54,28 @@ MIXTRAL_8X7B = LlamaConfig(
     rope=RopeParams(n_dims=128, mode="norm", freq_base=1000000.0),
     n_expert=8, n_expert_used=2,
 )
+# deepseek-ai/DeepSeek-V2-Lite config.json: 27 layers, hidden 2048, 16
+# heads, MLA (no q LoRA, kv_lora_rank 512, qk_nope 128, qk_rope 64, v_head
+# 128), 64 routed experts top-6 (softmax, norm_topk_prob false, routed
+# scale 1.0) of width 1408, 2 shared experts, first_k_dense_replace 1 with
+# intermediate_size 10944, vocab 102400, rms eps 1e-6, YaRN rope (theta
+# 1e4, factor 40, original context 4096), max_position_embeddings 163840.
+# GGUF keys as llama.cpp's convert_hf_to_gguf.py writes them
+# (`write_synth_gguf`).
+DEEPSEEK_V2_LITE = LlamaConfig(
+    arch="deepseek2", n_layers=27, n_embd=2048, n_heads=16, n_kv_heads=16, head_dim=192,
+    n_ff=10944, n_vocab=102400, n_ctx_train=163840, rms_eps=1e-6,
+    rope=RopeParams(n_dims=64, mode="norm", freq_base=10000.0, freq_scale=1 / 40,
+                    ext_factor=1.0, n_ctx_orig=4096),
+    n_expert=64, n_expert_used=6, moe_norm_weights=False, moe_shared_expert=True,
+    kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, n_dense_layers=1,
+)
+# (routed expert width, shared experts) a deepseek2 file is written with by
+# default: DeepSeek-V2-Lite's moe_intermediate_size and n_shared_experts.
+# The forward reads every width from the weights; only the writer needs these.
+DEEPSEEK_V2_LITE_EXPERTS = (1408, 2)
+# yarn_log_multiplier = 0.1 · mscale_all_dim (0.707), as the converter writes it
+DEEPSEEK_V2_YARN_LOG_MUL = 0.0707
 LLAMA2_13B = LlamaConfig(
     arch="llama", n_layers=40, n_embd=5120, n_heads=40, n_kv_heads=40, head_dim=128,
     n_ff=13824, n_vocab=32000, n_ctx_train=4096, rms_eps=1e-5,
@@ -63,6 +88,7 @@ CONFIGS = {
     "llama2-7b": LLAMA2_7B,
     "llama2-13b": LLAMA2_13B,
     "mixtral-8x7b": MIXTRAL_8X7B,
+    "deepseek-v2-lite": DEEPSEEK_V2_LITE,
 }
 
 
@@ -72,7 +98,8 @@ CONFIGS = {
 # 6-bit scales or random int8 scales (Q6_K). A Q8_0 at Q4_0's maximum had
 # 16× the rms, and a model mixing it with other kinds (Mixtral's Q8_0
 # attn_k / attn_v) was far off a real one's scales.
-_D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
+_D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q4_1: 0.02, GGMLType.Q5_0: 0.01,
+          GGMLType.Q5_1: 0.01, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
           GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5}
 # K-quant mins: each group's 6-bit min equals its scale and dmin = d·mean(q),
 # so every 32-element group d·sc·q − dmin·mn is zero-mean, as Q4_0's q − 8
@@ -80,6 +107,8 @@ _D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
 # matrices line up along K, and 32 layers of them make the activations and
 # attention scores far larger than a real model's.
 _DMIN_PER_D = {GGMLType.Q4_K: 7.5, GGMLType.Q5_K: 15.5}
+# Q4_1 / Q5_1 blocks alike: m = -d·mean(q), so d·q + m is zero-mean
+_M_PER_D = {GGMLType.Q4_1: -7.5, GGMLType.Q5_1: -15.5}
 
 
 def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) -> np.ndarray:
@@ -91,6 +120,8 @@ def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) 
     blocks = raw.view(DT[kind])
     d = rng.random(n_blocks, dtype=np.float32) * np.float32(_D_MAX[kind])
     blocks["d"] = d.astype(np.float16)
+    if kind in _M_PER_D:
+        blocks["m"] = (d * np.float32(_M_PER_D[kind])).astype(np.float16)
     if kind in _DMIN_PER_D:
         blocks["dmin"] = (d * np.float32(_DMIN_PER_D[kind])).astype(np.float16)
         # get_scale_min_k4 packing: bytes 4-7 hold the mins of groups 0-3
@@ -140,17 +171,41 @@ MIXTRAL_CHAT_TEMPLATE = (
     "{{ '[INST] ' + message['content'] + ' [/INST]' }}{% elif message['role'] == "
     "'assistant' %}{{ message['content'] + eos_token}}{% else %}{{ raise_exception('Only "
     "user and assistant roles are supported!') }}{% endif %}{% endfor %}")
-N_CONTROL = 256  # llama-3's control tokens: the last 256 ids (128000.. at full size)
+# DeepSeek-V2-Lite-Chat's chat template (tokenizer_config.json); the server
+# renders it through the builtin "deepseek2" family its markers name
+DEEPSEEK2_CHAT_TEMPLATE = (
+    "{% if not add_generation_prompt is defined %}{% set add_generation_prompt = false %}"
+    "{% endif %}{{ bos_token }}{% for message in messages %}{% if message['role'] == 'user' %}"
+    "{{ 'User: ' + message['content'] + '\\n\\n' }}{% elif message['role'] == 'assistant' %}"
+    "{{ 'Assistant: ' + message['content'] + eos_token }}{% elif message['role'] == 'system' %}"
+    "{{ message['content'] + '\\n\\n' }}{% endif %}{% endfor %}{% if add_generation_prompt %}"
+    "{{ 'Assistant:' }}{% endif %}")
+N_CONTROL = 256  # control tokens in the last ids (llama-3: 128000.. at full size)
+# the byte-level BPE presets `bpe_vocab` writes: pre-tokenizer → (control
+# tokens first in the control block, index of bos, eos and eot among them,
+# add_bos_token, chat template)
+_LLAMA3_CONTROL = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                   "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                   "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+                   "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+_DEEPSEEK_CONTROL = ["<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>", "<｜fim▁hole｜>",
+                     "<｜fim▁begin｜>", "<｜fim▁end｜>"]
+BPE_PRESETS = {
+    "llama-bpe": (_LLAMA3_CONTROL, (0, 1, 9), None, LLAMA3_CHAT_TEMPLATE),
+    "deepseek-llm": (_DEEPSEEK_CONTROL, (0, 1, None), True, DEEPSEEK2_CHAT_TEMPLATE),
+}
 
 
-def llama_bpe_vocab(n_vocab: int) -> dict:
-    """A llama-3-style byte-level BPE vocab of n_vocab tokens: the 256
-    byte-alphabet tokens, one token per merge (Ġ+letter, letter pairs,
-    Ġ+letter+lowercase, digit pairs; as many as fit), filler words, then the
-    256 control tokens (<|begin_of_text|> first, <|eot_id|> the tenth) in
-    the last ids. Returns the tokenizer KVs."""
+def bpe_vocab(n_vocab: int, pre: str = "llama-bpe") -> dict:
+    """A byte-level BPE vocab of n_vocab tokens for pre-tokenizer `pre`
+    (`BPE_PRESETS`): the 256 byte-alphabet tokens, one token per merge
+    (Ġ+letter, letter pairs, Ġ+letter+lowercase, digit pairs; as many as
+    fit), filler words, then N_CONTROL control tokens in the last ids (the
+    preset's named ones first, then reserved fillers). Returns the tokenizer
+    KVs, the preset's chat template among them."""
     from ..tokenizer.vocab import byte_to_unicode_map
 
+    named, (bos, eos, eot), add_bos, template = BPE_PRESETS[pre]
     alpha = [byte_to_unicode_map()[b] for b in range(256)]
     lower = [chr(c) for c in range(ord("a"), ord("z") + 1)]
     letters = lower + [c.upper() for c in lower]
@@ -160,28 +215,29 @@ def llama_bpe_vocab(n_vocab: int) -> dict:
              + [(a, b) for a in digits for b in digits])
     n_merges = min(len(pairs), n_vocab - 256 - N_CONTROL)
     if n_merges < 0:
-        raise ValueError(f"a llama-bpe vocab needs at least {256 + N_CONTROL} tokens")
+        raise ValueError(f"a byte-level BPE vocab needs at least {256 + N_CONTROL} tokens")
     merges = [f"{a} {b}" for a, b in pairs[:n_merges]]
     tokens = alpha + [a + b for a, b in pairs[:n_merges]]
     tokens += [f"Ġw{i}" for i in range(n_vocab - N_CONTROL - len(tokens))]
-    control = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
-               "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
-               "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
-               "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
-    control += [f"<|reserved_special_token_{i}|>" for i in range(3, 3 + N_CONTROL - len(control))]
+    control = named + [f"<|reserved_special_token_{i}|>"
+                       for i in range(3, 3 + N_CONTROL - len(named))]
     first = len(tokens)
     tokens += control
-    return {
+    kv = {
         "tokenizer.ggml.model": "gpt2",
-        "tokenizer.ggml.pre": "llama-bpe",
+        "tokenizer.ggml.pre": pre,
         "tokenizer.ggml.tokens": tokens,
         "tokenizer.ggml.token_type": [1] * first + [3] * N_CONTROL,  # NORMAL, CONTROL
         "tokenizer.ggml.merges": merges,
-        "tokenizer.ggml.bos_token_id": first,  # <|begin_of_text|>
-        "tokenizer.ggml.eos_token_id": first + 1,  # <|end_of_text|>
-        "tokenizer.ggml.eot_token_id": first + 9,  # <|eot_id|>
-        "tokenizer.chat_template": LLAMA3_CHAT_TEMPLATE,
+        "tokenizer.ggml.bos_token_id": first + bos,
+        "tokenizer.ggml.eos_token_id": first + eos,
+        "tokenizer.chat_template": template,
     }
+    if eot is not None:
+        kv["tokenizer.ggml.eot_token_id"] = first + eot
+    if add_bos is not None:
+        kv["tokenizer.ggml.add_bos_token"] = add_bos
+    return kv
 
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
@@ -190,42 +246,63 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
-FTYPES = ("Q4_0", "Q8_0", "Q4_K_M", "Q5_K_M")
+FTYPES = ("Q4_0", "Q4_1", "Q8_0", "Q4_K_M", "Q5_K_M")
+# llama.cpp's kind for a row length K that is not a multiple of the chosen
+# kind's block (the JAX package's tools/quantize.py:81-89, :220-227)
+_FALLBACK = {GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q5_K: GGMLType.Q5_1,
+             GGMLType.Q6_K: GGMLType.Q8_0}
 
 
-def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0) -> GGMLType:
-    """The kind of tensor `name` in a file of `ftype`. Q4_0 / Q8_0: every
-    matrix that kind. Q4_K_M / Q5_K_M: llama_tensor_get_type's rows for a
-    llama with an output tensor (the JAX package's
-    tools/quantize.py:121-228): the LM head Q6_K, attn_v and ffn_down (an
-    expert stack's ffn_down_exps too) Q6_K in the use_more_bits layers, the
-    rest Q4_K / Q5_K; with 8 experts (Mixtral) attn_k and attn_v Q8_0 and
-    attn_output Q5_K."""
-    if ftype in ("Q4_0", "Q8_0"):
+def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
+                k: int = 0) -> GGMLType:
+    """The kind of tensor `name` (row length k) in a file of `ftype`. Q4_0 /
+    Q4_1 / Q8_0: every matrix that kind. Q4_K_M / Q5_K_M: llama_tensor_get_type's
+    rows for a model with an output tensor (the JAX package's
+    tools/quantize.py:121-228): the LM head Q6_K; attn_v and every ffn_down
+    (a dense one, an expert stack's ffn_down_exps, a shared expert's
+    ffn_down_shexp) Q6_K in the use_more_bits layers, counted by layer
+    index; the rest Q4_K / Q5_K; with 8 experts (Mixtral) attn_k and attn_v
+    Q8_0 and attn_output Q5_K. Then the block-size fallback: a K-quant
+    whose block does not divide k becomes Q5_0 (from Q4_K), Q5_1 (Q5_K) or
+    Q8_0 (Q6_K), as DeepSeek-V2-Lite's K = 1408 expert rows and K = 10944
+    dense ffn_down do."""
+    if ftype in ("Q4_0", "Q4_1", "Q8_0"):
         return GGMLType[ftype]
     if ftype not in FTYPES:
         raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
+    kind = GGMLType.Q4_K if ftype == "Q4_K_M" else GGMLType.Q5_K
     if name == "output.weight":
-        return GGMLType.Q6_K
-    if n_expert == 8 and name.endswith(("attn_k.weight", "attn_v.weight")):
-        return GGMLType.Q8_0
-    if n_expert == 8 and name.endswith("attn_output.weight"):
-        return GGMLType.Q5_K
-    if name.startswith("blk.") and ("attn_v.weight" in name or "ffn_down" in name):
+        kind = GGMLType.Q6_K
+    elif n_expert == 8 and name.endswith(("attn_k.weight", "attn_v.weight")):
+        kind = GGMLType.Q8_0
+    elif n_expert == 8 and name.endswith("attn_output.weight"):
+        kind = GGMLType.Q5_K
+    elif name.startswith("blk.") and ("attn_v.weight" in name or "ffn_down" in name):
         if use_more_bits(int(name.split(".")[1]), n_layers):
-            return GGMLType.Q6_K
-    return GGMLType.Q4_K if ftype == "Q4_K_M" else GGMLType.Q5_K
+            kind = GGMLType.Q6_K
+    if k % GGML_TYPE_TRAITS[kind].block_size:
+        kind = _FALLBACK[kind]
+    return kind
 
 
 def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
-                     vocab: str = "spm", chat_template: str | None = None) -> None:
+                     vocab: str = "spm", chat_template: str | None = None,
+                     experts: tuple[int, int] | None = None) -> None:
     """Write `cfg` as a GGUF of random blocks whose kinds follow `ftype`
-    (`tensor_type`: for Q4_0 / Q8_0 every matrix, the embedding and the LM
-    head included), f32 norm weights of ones and a synthetic vocab: "spm",
-    or "llama-bpe" (`llama_bpe_vocab`, with llama-3's chat template). A
-    `chat_template` given is written as the GGUF's template."""
+    (`tensor_type`: for Q4_0 / Q4_1 / Q8_0 every matrix, the embedding and
+    the LM head included), f32 norm weights of ones and a synthetic vocab:
+    "spm", or a byte-level BPE one ("llama-bpe", "deepseek-llm": `bpe_vocab`,
+    with the preset's chat template). A `chat_template` given is written as
+    the GGUF's template. A deepseek2 config is written with its MLA, shared-
+    expert, leading-dense and YaRN keys, as llama.cpp's converter writes
+    them. `experts` = (routed expert width, shared experts): by default
+    DEEPSEEK_V2_LITE_EXPERTS for deepseek2, else (n_ff, 0)."""
     rng = np.random.default_rng(seed)
     arch = cfg.arch
+    mla = cfg.kv_lora_rank > 0
+    if experts is None:
+        experts = DEEPSEEK_V2_LITE_EXPERTS if arch == "deepseek2" else (cfg.n_ff, 0)
+    ff_exp, n_shared = experts
     w = GGUFWriter(path, arch)
     w.add_uint32(f"{arch}.block_count", cfg.n_layers)
     w.add_uint32(f"{arch}.context_length", cfg.n_ctx_train)
@@ -240,8 +317,25 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     if cfg.n_expert:
         w.add_uint32(f"{arch}.expert_count", cfg.n_expert)
         w.add_uint32(f"{arch}.expert_used_count", cfg.n_expert_used)
-    if vocab == "llama-bpe":
-        for key, val in llama_bpe_vocab(cfg.n_vocab).items():
+    if mla:
+        w.add_uint32(f"{arch}.leading_dense_block_count", cfg.n_dense_layers)
+        w.add_uint32(f"{arch}.attention.kv_lora_rank", cfg.kv_lora_rank)
+        if cfg.q_lora_rank:
+            w.add_uint32(f"{arch}.attention.q_lora_rank", cfg.q_lora_rank)
+        w.add_uint32(f"{arch}.attention.key_length", cfg.qk_nope_dim + cfg.qk_rope_dim)
+        w.add_uint32(f"{arch}.attention.value_length", cfg.v_head_dim)
+        w.add_uint32(f"{arch}.expert_feed_forward_length", ff_exp)
+        w.add_uint32(f"{arch}.expert_shared_count", n_shared)
+        w.add_float32(f"{arch}.expert_weights_scale", cfg.moe_scale)
+        w.add_bool(f"{arch}.expert_weights_norm", cfg.moe_norm_weights)
+        w.add_uint32(f"{arch}.expert_gating_func", 2 if cfg.expert_gating == "sigmoid" else 1)
+    if cfg.rope.ext_factor:  # YaRN: the keys of a converted DeepSeek-V2
+        w.add_string(f"{arch}.rope.scaling.type", "yarn")
+        w.add_float32(f"{arch}.rope.scaling.factor", 1.0 / cfg.rope.freq_scale)
+        w.add_uint32(f"{arch}.rope.scaling.original_context_length", cfg.rope.n_ctx_orig)
+        w.add_float32(f"{arch}.rope.scaling.yarn_log_multiplier", DEEPSEEK_V2_YARN_LOG_MUL)
+    if vocab in BPE_PRESETS:
+        for key, val in bpe_vocab(cfg.n_vocab, vocab).items():
             w.add_kv(key, val)
     elif vocab == "spm":
         tokens, scores, types = _spm_vocab(cfg.n_vocab)
@@ -250,17 +344,22 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
         w.add_kv("tokenizer.ggml.scores", scores)
         w.add_kv("tokenizer.ggml.token_type", types)
     else:
-        raise ValueError(f"vocab {vocab!r}: 'spm' or 'llama-bpe'")
+        raise ValueError(f"vocab {vocab!r}: 'spm' or one of {sorted(BPE_PRESETS)}")
     if chat_template is not None:
         w.add_kv("tokenizer.chat_template", chat_template)
 
     def add_q(name: str, n: int, k: int, e: int = 0) -> None:
         """A packed [N, K] tensor, or an expert stack [E, N, K] for e > 0."""
-        kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert)
+        kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert, k)
         if k % GGML_TYPE_TRAITS[kind].block_size:
             raise ValueError(f"{name}: K={k} is not a multiple of {kind.name}'s block")
         w.add_tensor(name, lambda: synth_raw(rng, kind, (max(e, 1), n, k)), ggml_type=kind,
                      ne_shape=(k, n, e) if e else (k, n))
+
+    def add_ffn(p: str, suffix: str, ff: int, e: int = 0) -> None:
+        add_q(f"{p}ffn_gate{suffix}.weight", ff, c, e)
+        add_q(f"{p}ffn_up{suffix}.weight", ff, c, e)
+        add_q(f"{p}ffn_down{suffix}.weight", c, ff, e)
 
     c, hd = cfg.n_embd, cfg.head_dim
     ones = np.ones(c, np.float32)
@@ -268,26 +367,32 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         w.add_tensor(p + "attn_norm.weight", ones)
-        add_q(p + "attn_q.weight", cfg.n_heads * hd, c)
-        add_q(p + "attn_k.weight", cfg.n_kv_heads * hd, c)
-        add_q(p + "attn_v.weight", cfg.n_kv_heads * hd, c)
-        add_q(p + "attn_output.weight", c, cfg.n_heads * hd)
+        if mla:  # DeepSeek-V2: the latent-attention tensors (no q LoRA)
+            h, r = cfg.n_heads, cfg.kv_lora_rank
+            add_q(p + "attn_q.weight", h * (cfg.qk_nope_dim + cfg.qk_rope_dim), c)
+            add_q(p + "attn_kv_a_mqa.weight", r + cfg.qk_rope_dim, c)
+            w.add_tensor(p + "attn_kv_a_norm.weight", np.ones(r, np.float32))
+            add_q(p + "attn_kv_b.weight", h * (cfg.qk_nope_dim + cfg.v_head_dim), r)
+            add_q(p + "attn_output.weight", c, h * cfg.v_head_dim)
+        else:
+            add_q(p + "attn_q.weight", cfg.n_heads * hd, c)
+            add_q(p + "attn_k.weight", cfg.n_kv_heads * hd, c)
+            add_q(p + "attn_v.weight", cfg.n_kv_heads * hd, c)
+            add_q(p + "attn_output.weight", c, cfg.n_heads * hd)
         w.add_tensor(p + "ffn_norm.weight", ones)
-        if cfg.n_expert:  # the router stays f32, as llama.cpp leaves it
-            e = cfg.n_expert
+        if cfg.n_expert and i >= cfg.n_dense_layers:  # the router stays f32, as llama.cpp
+            e = cfg.n_expert                          # leaves it
             # std 0.02 at Mixtral's width (as the JAX package's synth), scaled
             # so that router logits spread alike at every width
             std = np.float32(0.02 * math.sqrt(4096 / c))
             w.add_tensor(p + "ffn_gate_inp.weight",
                          lambda: (rng.standard_normal((e, c)) * std).astype(np.float32),
                          ggml_type=GGMLType.F32, ne_shape=(c, e))
-            add_q(p + "ffn_gate_exps.weight", cfg.n_ff, c, e)
-            add_q(p + "ffn_up_exps.weight", cfg.n_ff, c, e)
-            add_q(p + "ffn_down_exps.weight", c, cfg.n_ff, e)
+            add_ffn(p, "_exps", ff_exp, e)
+            if cfg.moe_shared_expert:
+                add_ffn(p, "_shexp", n_shared * ff_exp)
             continue
-        add_q(p + "ffn_gate.weight", cfg.n_ff, c)
-        add_q(p + "ffn_up.weight", cfg.n_ff, c)
-        add_q(p + "ffn_down.weight", c, cfg.n_ff)
+        add_ffn(p, "", cfg.n_ff)
     w.add_tensor("output_norm.weight", ones)
     add_q("output.weight", cfg.n_vocab, c)
     w.write()

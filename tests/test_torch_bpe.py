@@ -20,7 +20,7 @@ from llama_cpp_dsp_tpu_torch.gguf.reader import GGUFModel
 from llama_cpp_dsp_tpu_torch.tokenizer import Tokenizer, Vocab
 from llama_cpp_dsp_tpu_torch.tokenizer.bpe import PRE_REGEXES, BpeTokenizer, regex_split
 from llama_cpp_dsp_tpu_torch.tokenizer.unicode_re import translate
-from llama_cpp_dsp_tpu_torch.tools.synth import llama_bpe_vocab
+from llama_cpp_dsp_tpu_torch.tools.synth import bpe_vocab
 from test_tokenizer_reference import MODELS_DIR
 
 CORPUS = [
@@ -61,7 +61,7 @@ def test_translate_keeps_plain_syntax():
 
 
 def _vocabs(n_vocab=2048, pre="llama-bpe", ignore_merges=None):
-    kv = llama_bpe_vocab(n_vocab)
+    kv = bpe_vocab(n_vocab)
     kv["tokenizer.ggml.pre"] = pre
     ours, theirs = Vocab.from_gguf_kv(kv), JaxVocab.from_gguf_kv(kv)
     if ignore_merges is not None:

@@ -16,7 +16,9 @@ import torch
 
 from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
-from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode, flash_decode_plain
+from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (flash_decode, flash_decode_plain,
+                                                            mla_flash_decode,
+                                                            mla_flash_decode_plain)
 from llama_cpp_dsp_tpu_torch.ops.kernels.attn_fused import attn_decode_fused, attn_fused_plain
 from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import (qmm, qmm_expert_rows,
                                                      qmm_expert_rows_plain, qmm_plain)
@@ -58,8 +60,8 @@ def test_port_imports_with_jax_blocked():
         from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
         from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
         from llama_cpp_dsp_tpu_torch.tokenizer import Tokenizer, Vocab
-        from llama_cpp_dsp_tpu_torch.tools.synth import llama_bpe_vocab, synth_qtensor
-        tok = Tokenizer(Vocab.from_gguf_kv(llama_bpe_vocab(1024)))
+        from llama_cpp_dsp_tpu_torch.tools.synth import bpe_vocab, synth_qtensor
+        tok = Tokenizer(Vocab.from_gguf_kv(bpe_vocab(1024)))
         ids = tok.encode("<|begin_of_text|>Hello, wörld 123!", parse_special=True)
         assert ids[:2] == [tok.vocab.bos_id] * 2 and tok.decode(ids) == "Hello, wörld 123!"
         rng = np.random.default_rng(0)
@@ -81,6 +83,38 @@ def test_port_imports_with_jax_blocked():
                  "ffn_down_exps": synth_qtensor(rng, GGMLType.Q6_K, (4, 256, 256))}
         for t in (1, 5):  # the selected-expert branch, then dense-all
             assert ffn_moe(torch.ones(1, t, 256), layer, cfg).isfinite().all()
+        # the legacy kinds, MLA decode's plain version and a deepseek2 layer
+        import dataclasses
+        from llama_cpp_dsp_tpu_torch.models.deepseek2 import split_kv_b
+        from llama_cpp_dsp_tpu_torch.models.llama import decode_layer
+        from llama_cpp_dsp_tpu_torch.ops.kernels.attention import mla_flash_decode
+        from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache
+        from llama_cpp_dsp_tpu_torch.tools.synth import DEEPSEEK_V2_LITE
+        for kind in (GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+            assert dequant(synth_qtensor(rng, kind, (4, 352))).isfinite().all()
+        out = mla_flash_decode(torch.ones(2, 4, 256), torch.ones(2, 1, 16, 256),
+                               torch.tensor([3, 16]), scale=0.1, r=128)
+        assert out.shape == (2, 4, 128)
+        ds = dataclasses.replace(DEEPSEEK_V2_LITE, n_layers=1, n_embd=256, n_heads=4,
+                                 kv_lora_rank=128, qk_nope_dim=64, qk_rope_dim=32,
+                                 v_head_dim=64,
+                                 rope=dataclasses.replace(DEEPSEEK_V2_LITE.rope, n_dims=32))
+        ds_layer = {"attn_norm": torch.ones(256), "ffn_norm": torch.ones(256),
+                    "attn_q": synth_qtensor(rng, GGMLType.Q5_0, (4 * 96, 256)),
+                    "attn_kv_a_mqa": synth_qtensor(rng, GGMLType.Q4_1, (160, 256)),
+                    "attn_kv_a_norm": torch.ones(128),
+                    "attn_kv_b": synth_qtensor(rng, GGMLType.Q5_1, (4 * 128, 128)),
+                    "attn_output": synth_qtensor(rng, GGMLType.Q8_0, (256, 256)),
+                    "ffn_gate": synth_qtensor(rng, GGMLType.Q4_K, (256, 256)),
+                    "ffn_up": synth_qtensor(rng, GGMLType.Q4_K, (256, 256)),
+                    "ffn_down": synth_qtensor(rng, GGMLType.Q5_0, (256, 256))}
+        split_kv_b({"layers": [ds_layer]}, ds)  # as the loader does
+        cache = KVCache.create(1, 1, 8, ds.kv_cache_heads, ds.kv_cache_dim)
+        for lo, hi in ((0, 3), (3, 4)):  # prefill, then decode through B10's wrapper
+            pos = torch.arange(lo, hi, dtype=torch.int32)[None]
+            y = decode_layer(torch.ones(1, hi - lo, 256), ds_layer, ds, pos, cache, 0, lo,
+                             True, {})
+            assert y.isfinite().all()
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)
@@ -135,7 +169,8 @@ def test_wrappers_take_plain_version_on_cpu():
     rng = np.random.default_rng(0)
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
     before = dict(LAUNCHES)
-    for kind in (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
+    for kind in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
+                 GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
         w = synth_qtensor(rng, kind, (64, 256))
         x = t(3, 256)
         assert torch.equal(qmm(x, w), qmm_plain(x, w))
@@ -157,4 +192,8 @@ def test_wrappers_take_plain_version_on_cpu():
     want = attn_fused_plain(x, w, k, v, cos, sin, lengths, None, lengths - 1, n_heads=2,
                             n_kv_heads=2, scale=0.1)
     assert torch.equal(got, want) and torch.equal(kc, k) and torch.equal(vc, v)
+    q = t(2, 4, 256)
+    c = t(2, 1, 16, 256).to(torch.bfloat16)
+    assert torch.equal(mla_flash_decode(q, c, lengths, scale=0.1, r=128),
+                       mla_flash_decode_plain(q, c, lengths, scale=0.1, r=128))
     assert LAUNCHES == before

@@ -2,6 +2,9 @@
 qmm_fused in interpret mode, and the port's repack and dequant against the
 JAX package's repack and ref_numpy, for every kind with a port kernel.
 
+The kinds of 32-element blocks also run at K = 352 (11 blocks), off the
+256 grid, as DeepSeek-V2-Lite's K = 1408 expert rows are.
+
 Tolerance: NMSE ≤ 5e-4 against x · exact-f32-dequant(W)ᵀ and against the
 JAX kernel — the reference's MUL_MAT tolerance, as tests/test_pallas_qmm.py
 states. The torch dequant is bit-exact with ref_numpy.
@@ -26,8 +29,11 @@ from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
 from llama_cpp_dsp_tpu_torch.ops.qtensor import PACKED_KINDS, from_gguf_tensor
 from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
 
-KINDS = [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+KINDS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
+         GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
 NMSE_TOL = 5e-4
+K_OFF_GRID = 352  # 11 blocks of 32: not a multiple of 256
+SMALL_BLOCK_KINDS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0]
 
 
 def nmse(got, want):
@@ -42,10 +48,10 @@ def _weights(kind, n, k, seed=0):
     return raw, from_gguf_tensor(raw, TGGMLType(int(kind)), (n, k))
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("b", [1, 5])
-def test_qmm_matches_jax_qmm_fused(kind, b):
-    n, k = 256, 512
+@pytest.mark.parametrize("kind,b,k", [(kind, b, 512) for kind in KINDS for b in (1, 5)]
+                         + [(kind, 5, K_OFF_GRID) for kind in SMALL_BLOCK_KINDS])
+def test_qmm_matches_jax_qmm_fused(kind, b, k):
+    n = 256
     raw, qt = _weights(kind, n, k)
     x = np.random.default_rng(1).standard_normal((b, k)).astype(np.float32)
     exact = x @ dequantize(raw, kind).reshape(n, k).T
@@ -70,9 +76,10 @@ def test_qmm_keeps_leading_dims(kind):
     torch.testing.assert_close(y, qmm_plain(x.reshape(6, 256), qt).reshape(2, 3, 64))
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_dequant_bit_exact_with_ref_numpy(kind):
-    n, k = 48, 256
+@pytest.mark.parametrize("kind,k", [(kind, 256) for kind in KINDS]
+                         + [(kind, K_OFF_GRID) for kind in SMALL_BLOCK_KINDS])
+def test_dequant_bit_exact_with_ref_numpy(kind, k):
+    n = 48
     raw, qt = _weights(kind, n, k, seed=4)
     want = dequantize(raw, kind).reshape(n, k)
     got = dequant(qt, torch.float32).numpy()
@@ -85,10 +92,11 @@ def test_kinds_are_the_packed_kinds():
     assert [int(k) for k in KINDS] == [int(k) for k in PACKED_KINDS]
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_repack_fields_match_jax(kind):
+@pytest.mark.parametrize("kind,k", [(kind, 512) for kind in KINDS]
+                         + [(kind, K_OFF_GRID) for kind in SMALL_BLOCK_KINDS])
+def test_repack_fields_match_jax(kind, k):
     """Field names, dtypes, shapes and bytes as the JAX package's repack."""
-    n, k = 32, 512
+    n = 32
     raw, qt = _weights(kind, n, k, seed=5)
     want = jax_repack(raw, kind, (n, k))
     assert qt.shape == want.shape and sorted(qt.arrays) == sorted(want.arrays)
