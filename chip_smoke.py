@@ -7,7 +7,9 @@
 Phases:
   build    nvcc builds csrc/*.cu for sm_90a (one process per source).
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card, at the llama2-7B shapes (qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
+           card, at the llama2-7B shapes (flash decode over bf16, f16 and f32
+           rows; Q4_0 decode at the 7B's and the 8B's heads and capacities
+           512, 4096 and 770; qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
            Q4_K_M / Q5_K_M shapes; the Q4_1/Q5_0/Q5_1 kernels and MLA decode:
            DeepSeek-V2-Lite's shapes too), with its stated tolerance and, where it
            has one, a planted fault that the tolerance must catch; times of
@@ -28,10 +30,20 @@ Phases:
   q8       a TinyLlama-1.1B-geometry Q8_0 GGUF through the CLI.
   small_kq a 2-layer head_dim-128 Q4_K_M model with a llama-bpe vocab: logits
            and greedy stream on the card against the CPU.
+  small_kv a 2-layer head_dim-128 Q4_0 model, card against CPU, over every
+           KV cache type (-ctk f32 f16 q8_0 q4_0 q4_1 q5_0 q5_1 iq4_nl), the
+           split -ctk q8_0 -ctv q4_0 and Q4_0 pages; a small DeepSeek-V2 with
+           -ctk q8_0 (MLA's plain path over a quantized latent cache).
   llama3   a full-width, full-depth Llama-3-8B-geometry Q4_K_M GGUF with a
            llama-bpe vocab: the CLI (tokens/s, launches of one decode step,
            a profiled chunk, a profiled 512-token prefill), then the server
            (slots bf16 and paged q8_0) with chat through the llama3 template.
+  kv8b     the same model over the KV cache types: the CLI with -ctk q4_0
+           (B8 32 times a token; logits against B8's plain version), the
+           CLI with -ctk q8_0 -ctv q4_0, the cache bytes per token of every
+           type, then the server over Q4_0 slots and Q4_0 pages (the burst,
+           an idle slot, first-step logits, a slot save and restore through
+           /slots whose restored slot must continue as the saved one).
   q5km     the same model as Q5_K_M through the CLI.
   small_moe a 2-layer Mixtral-shaped model (8 experts, top-2) at narrow
            widths in four mixes (Q4_K_M, Q5_K_M, Q4_0, Q8_0): a 34-token
@@ -76,8 +88,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "llama3", "q5km",
-          "small_moe", "mixtral", "small_ds", "deepseek")
+PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "small_kv", "llama3",
+          "kv8b", "q5km", "small_moe", "mixtral", "small_ds", "deepseek")
 
 
 def fail(msg: str) -> None:
@@ -448,26 +460,142 @@ def check_flash_decode(records):
                 fail(f"flash_decode Hkv={hkv} {label} disagrees with its plain version")
             worst_nmse = max(worst_nmse, check_slots(f"flash_decode Hkv={hkv} {label}", got,
                                                      want, faults, FLASH_NMSE_TOL))
+    # f16 and f32 rows (-ctk f16 / f32), and K and V of two types (a split
+    # -ctk f32 -ctv bf16: both taken in f32 by the wrapper)
+    for label, kdt, vdt in (("f16", torch.float16, torch.float16),
+                            ("f32", torch.float32, torch.float32),
+                            ("f32/bf16", torch.float32, torch.bfloat16)):
+        for hkv in (32, 8):
+            q = torch.randn(b, h, d, generator=gen, device="cuda")
+            k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(kdt)
+            v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(vdt)
+            for case, starts, cap in (("full", None, 0.0),
+                                      ("swa", torch.tensor([0, 0, 100, 50], dtype=torch.int32,
+                                                           device="cuda"), 0.0),
+                                      ("softcap", None, 30.0)):
+                got = flash_decode(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
+                want = flash_decode_plain(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
+                st = torch.zeros_like(lengths) if starts is None else starts
+                faults = {"first row dropped": flash_decode_plain(
+                              q, k, v, lengths, st + 1, scale=d ** -0.5, softcap=cap),
+                          "last row dropped": flash_decode_plain(
+                              q, k, v, lengths - 1, starts, scale=d ** -0.5, softcap=cap)}
+                torch.cuda.synchronize()
+                worst = max(worst, float((got - want).abs().max()))
+                worst_nmse = max(worst_nmse, check_slots(f"flash_decode {label} Hkv={hkv} {case}",
+                                                         got, want, faults, FLASH_NMSE_TOL))
+    # time: one 7B layer (B=1, Hkv=32) at a full 512-row context, cold
+    # caches, per row type
+    hkv, L = 32, 512
+    one = torch.tensor([L], dtype=torch.int32, device="cuda")
+    by_type = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16), ("f32", torch.float32)):
+        kv_bytes = 2 * hkv * L * d * dt.itemsize
+        sets = []
+        for _ in range(n_copies(kv_bytes)):
+            q = torch.randn(1, h, d, generator=gen, device="cuda")
+            k = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(dt)
+            v = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(dt)
+            sets.append((q, k, v))
+        ms = time_ms(lambda q, k, v: flash_decode(q, k, v, one, scale=d ** -0.5), sets)
+        pms = time_ms(lambda q, k, v: flash_decode_plain(q, k, v, one, scale=d ** -0.5), sets)
+        lms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q.to(dt)[:, :, None], k, v, scale=d ** -0.5), sets)
+        bms, by = bound_ms(kv_bytes + 2 * h * d * 4, 4.0 * h * L * d)
+        print(f"  flash_decode {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.4f} ms, "
+              f"{kv_bytes / ms / 1e6:.0f} GB/s")
+        by_type[name] = {"ms": 32 * ms, "plain_ms": 32 * pms, "library_ms": 32 * lms,
+                         "bound_ms": 32 * bms}
+    records["flash_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, **by_type["bf16"],
+                                   bound_by=by, by_row_type=by_type)
+
+
+Q4_CAPACITIES = (512, 4096, 770)  # 770: even, not a multiple of 256 (JAX's gate)
+Q4_SOFTCAP = 50.0
+
+
+def _q4_planes(x):
+    """A random f32 cache [B, Hkv, S, D] → (u8 row-pair plane, parity-major
+    group scales) by the port's own quantizer."""
+    from llama_cpp_dsp_tpu_torch.quant.kv_planes import q4_pack_rows, q4_quant, rows_to_parity
+
+    q, dd = q4_quant(x)
+    return q4_pack_rows(q).contiguous(), rows_to_parity(dd).contiguous()
+
+
+def check_flash_decode_q4(records):
+    """flash_decode_q4 (B8) against its plain version at D=128, H=32 over Hkv
+    32 (the 7B layer) and 8 (the 8B's), B 1 and 4, capacities 512, 4096 and
+    770, odd and even lengths, a slot starting past row 0, softcap 0 and 50:
+    per-slot NMSE, with three planted faults (first or last valid row
+    dropped, the two parity scale planes swapped). Timed at the 7B layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+    from llama_cpp_dsp_tpu_torch.quant.kv_planes import q4_deq_plane
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, d = 32, 128
+    sc = d ** -0.5
+    g = d // 32
+    worst = [0.0, 0.0]
+
+    def swap(dd):  # the parity planes exchanged: each row takes its sibling's scales
+        return torch.cat([dd[:, :, g:], dd[:, :, :g]], dim=2)
+
+    for hkv in (32, 8):
+        for b in (1, 4):
+            for cap in Q4_CAPACITIES:
+                lens = (cap, 1, cap // 2 + 1, 77) if b == 4 else (cap - 1,)
+                sts = (0, 0, 101, 0) if b == 4 else (3,)
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                q = torch.randn(b, h, d, generator=gen, device="cuda")
+                kq, kd = _q4_planes(torch.randn(b, hkv, cap, d, generator=gen, device="cuda"))
+                vq, vd = _q4_planes(torch.randn(b, hkv, cap, d, generator=gen, device="cuda"))
+                for case, starts, cap_s in (
+                        ("full", None, 0.0),
+                        ("start", torch.tensor(sts, dtype=torch.int32, device="cuda"), 0.0),
+                        ("softcap", None, Q4_SOFTCAP)):
+                    got = ka.flash_decode_q4(q, kq, kd, vq, vd, lengths, starts, scale=sc,
+                                             softcap=cap_s)
+                    plain = ka.flash_decode_q4_plain
+                    want = plain(q, kq, kd, vq, vd, lengths, starts, scale=sc, softcap=cap_s)
+                    st = torch.zeros_like(lengths) if starts is None else starts
+                    faults = {
+                        "first row dropped": plain(q, kq, kd, vq, vd, lengths, st + 1,
+                                                   scale=sc, softcap=cap_s),
+                        "last row dropped": plain(q, kq, kd, vq, vd, lengths - 1, starts,
+                                                  scale=sc, softcap=cap_s),
+                        "parity scale planes swapped": plain(q, kq, swap(kd), vq, swap(vd),
+                                                             lengths, starts, scale=sc,
+                                                             softcap=cap_s)}
+                    torch.cuda.synchronize()
+                    worst[0] = max(worst[0], float((got - want).abs().max()))
+                    worst[1] = max(worst[1], check_slots(
+                        f"flash_decode_q4 Hkv={hkv} B={b} S={cap} {case}", got, want, faults,
+                        FLASH_NMSE_TOL))
     # time: one 7B layer (B=1, Hkv=32) at a full 512-row context, cold caches
     hkv, L = 32, 512
     one = torch.tensor([L], dtype=torch.int32, device="cuda")
-    kv_bytes = 2 * hkv * L * d * 2
+    kv_bytes = 2 * hkv * L * (d // 2 + 4 * g)  # 80 B a row and head, K and V
     sets = []
     for _ in range(n_copies(kv_bytes)):
         q = torch.randn(1, h, d, generator=gen, device="cuda")
-        k = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(torch.bfloat16)
-        v = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(torch.bfloat16)
-        sets.append((q, k, v))
-    ms = time_ms(lambda q, k, v: flash_decode(q, k, v, one, scale=d ** -0.5), sets)
-    pms = time_ms(lambda q, k, v: flash_decode_plain(q, k, v, one, scale=d ** -0.5), sets)
-    lms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q.to(torch.bfloat16)[:, :, None], k, v, scale=d ** -0.5), sets)
-    print(f"  flash_decode 7B layer, context {L}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"sdpa {lms:.4f} ms, {kv_bytes / ms / 1e6:.0f} GB/s")
-    bms, by = bound_ms(kv_bytes + 2 * h * d * 4, 4.0 * h * L * d)
-    records["flash_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, ms=32 * ms,
-                                   plain_ms=32 * pms, library_ms=32 * lms, bound_ms=32 * bms,
-                                   bound_by=by)
+        sets.append((q, *_q4_planes(torch.randn(1, hkv, L, d, generator=gen, device="cuda")),
+                     *_q4_planes(torch.randn(1, hkv, L, d, generator=gen, device="cuda"))))
+    ms = time_ms(lambda *a: ka.flash_decode_q4(*a, one, scale=sc), sets)
+    pms = time_ms(lambda *a: ka.flash_decode_q4_plain(*a, one, scale=sc), sets)
+    lms = time_ms(lambda q, kq, kd, vq, vd: F.scaled_dot_product_attention(
+        q.to(torch.bfloat16)[:, :, None], q4_deq_plane(kq, kd), q4_deq_plane(vq, vd),
+        scale=sc), sets)
+    bms, by = bound_ms(kv_bytes + 2 * h * d * 4 + 4, 4.0 * h * L * d)
+    print(f"  flash_decode_q4 7B layer, context {L}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"dequant + sdpa {lms:.4f} ms, bound {bms:.4f} ms, {kv_bytes / ms / 1e6:.0f} GB/s")
+    records["flash_decode_q4"].update(max_abs_err=worst[0], max_nmse=worst[1], ms=32 * ms,
+                                      plain_ms=32 * pms, library_ms=32 * lms,
+                                      bound_ms=32 * bms, bound_by=by)
 
 
 VARIANT_LENGTHS = (1, 37, 200, 511)  # ragged, one row to a full 512-row slot
@@ -500,9 +628,9 @@ def _paged_tables(lengths, ps: int, s: int, gen):
 def _dense_q8(k):
     """A random f32 cache [.., S, D] → int8 rows and [.., 1, S] scales, by
     the port's own quantizer."""
-    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import _q8_quant
+    from llama_cpp_dsp_tpu_torch.quant.kv_planes import q8_quant
 
-    qs, d = _q8_quant(k)
+    qs, d = q8_quant(k)
     return qs, d.unsqueeze(-2).contiguous()
 
 
@@ -554,9 +682,9 @@ def check_decode_variants(records):
             kp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
             vp = torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda")
             label = f"Hkv={hkv} ps={ps}"
-            run_case("flash_decode_paged", label, ka.flash_decode_paged,
-                     ka.flash_decode_paged_plain,
-                     (q, kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables))
+            for dt in (torch.bfloat16, torch.float16, torch.float32):
+                run_case("flash_decode_paged", f"{label} {str(dt)[6:]}", ka.flash_decode_paged,
+                         ka.flash_decode_paged_plain, (q, kp.to(dt), vp.to(dt), tables))
             kpq, kpd = _dense_q8(kp)
             vpq, vpd = _dense_q8(vp)
             run_case("flash_decode_paged_q8", label, ka.flash_decode_paged_q8,
@@ -619,6 +747,24 @@ def check_decode_variants(records):
         records[name].update(max_abs_err=worst[name][0], max_nmse=worst[name][1], ms=32 * ms,
                              plain_ms=32 * pms, library_ms=32 * lms, bound_ms=32 * bms,
                              bound_by=by)
+    # paged f16 / f32 pools (-ctk f16 / f32 --kv-layout paged), the same layer
+    by_type = {"bf16": {k: records["flash_decode_paged"][k]
+                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    for name, dt in (("f16", torch.float16), ("f32", torch.float32)):
+        nbytes = 2 * hkv * L * d * dt.itemsize
+        arg_sets = [(a[0], a[1].to(dt), a[2].to(dt), a[3])
+                    for a in sets["paged"][:n_copies(nbytes)]]
+        ms = time_ms(lambda *a: ka.flash_decode_paged(*a, one, scale=sc), arg_sets)
+        pms = time_ms(lambda *a: ka.flash_decode_paged_plain(*a, one, scale=sc), arg_sets)
+        lms = time_ms(lambda q, kp, vp, tb: F.scaled_dot_product_attention(
+            q.to(dt)[:, :, None], ka._gather_pages(kp, tb), ka._gather_pages(vp, tb), scale=sc),
+            arg_sets)
+        bms, _ = bound_ms(nbytes + io + 4 * (L // ps), flops)
+        print(f"  flash_decode_paged {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, gather + sdpa {lms:.4f} ms, bound {bms:.4f} ms")
+        by_type[name] = {"ms": 32 * ms, "plain_ms": 32 * pms, "library_ms": 32 * lms,
+                         "bound_ms": 32 * bms}
+    records["flash_decode_paged"]["by_row_type"] = by_type
 
 
 # per slot, of the output and of the written K/V rows: the plain version
@@ -859,9 +1005,14 @@ def profile_chunk(ctx, token: int, steps: int = 8) -> None:
     profile_steps(lambda: ctx._eval_sample_chunk(token, greedy, steps), steps)
 
 
-def small_model_check(path: Path, prompt_text: str, must: list[str], label: str) -> None:
-    """A small synthetic GGUF: logits of a prompt and of one decode step, and
-    a greedy stream, on the card (kernels) against the CPU (plain versions)."""
+def small_model_check(path: Path | None, prompt_text: str, must: list[str], label: str,
+                      model=None, ctx_kw: dict | None = None, cache_fn=None,
+                      n_stream: int = 12) -> dict:
+    """A small synthetic GGUF (or `model`, already loaded): logits of a
+    prompt and of one decode step, and a greedy stream, on the card
+    (kernels) against the CPU (plain versions). ctx_kw: LlamaContext
+    options (the KV types); cache_fn(device): a cache that replaces the
+    context's own. Deletes `path` when done; returns the card's launches."""
     import torch
 
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -869,19 +1020,26 @@ def small_model_check(path: Path, prompt_text: str, must: list[str], label: str)
     from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
     from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 
-    model = load_model(str(path))
+    model = model or load_model(str(path))
     prompt = model.tokenizer.encode(prompt_text)
-    ref = LlamaContext(model, n_ctx=64, device="cpu")
+
+    def context(device):
+        ctx = LlamaContext(model, n_ctx=64, device=device, **(ctx_kw or {}))
+        if cache_fn is not None:
+            ctx.cache = cache_fn(device)
+        return ctx
+
+    ref = context("cpu")
     ref_logits = ref.eval_tokens(prompt)
-    ref_stream = list(LlamaContext(model, n_ctx=64, device="cpu").generate(
-        prompt, max_new_tokens=12, sampler=make_chain(temp=0)))
+    ref_stream = list(context("cpu").generate(prompt, max_new_tokens=n_stream,
+                                              sampler=make_chain(temp=0)))
     reset_launches()
-    ctx = LlamaContext(model, n_ctx=64)
+    ctx = context("cuda")
     logits = ctx.eval_tokens(prompt)
     step = ctx.eval_tokens([int(ref_logits.argmax())])
     ref_step = ref.eval_tokens([int(ref_logits.argmax())])
-    stream = list(LlamaContext(model, n_ctx=64).generate(
-        prompt, max_new_tokens=12, sampler=make_chain(temp=0)))
+    stream = list(context("cuda").generate(prompt, max_new_tokens=n_stream,
+                                           sampler=make_chain(temp=0)))
     counts = dict(LAUNCHES)
     scale = float(abs(ref_logits).max())
     e_pre = float(abs(logits - ref_logits).max()) / scale
@@ -894,7 +1052,8 @@ def small_model_check(path: Path, prompt_text: str, must: list[str], label: str)
     n_same = next((i for i, (a, b) in enumerate(zip(stream, ref_stream)) if a != b),
                   len(stream))
     print(f"  {label} greedy stream: {n_same}/{len(stream)} leading tokens agree")
-    path.unlink()
+    if path is not None:
+        path.unlink()
     return counts
 
 
@@ -929,6 +1088,62 @@ def phase_small_kq() -> None:
     write_synth_gguf(str(path), cfg, "Q4_K_M", seed=5, vocab="llama-bpe")
     small_model_check(path, "The quick brown fox jumps over the lazy dog, then rests a while.",
                       ["qmm_q4_k", "qmm_q6_k", "flash_decode"], "small_kq")
+
+
+SMALL_KV_TYPES = {  # (-ctk, -ctv) → the decode attention kernel its path runs
+    ("f32", None): "flash_decode", ("f16", None): "flash_decode",
+    ("q8_0", None): "flash_decode_q8", ("q4_0", None): "flash_decode_q4",
+    ("q4_1", None): "flash_decode", ("q5_0", None): "flash_decode",
+    ("q5_1", None): "flash_decode", ("iq4_nl", None): "flash_decode",
+    ("q8_0", "q4_0"): "flash_decode",
+}
+
+
+def phase_small_kv(records: dict) -> None:
+    """A 2-layer head_dim-128 GQA Q4_0 model, card against CPU, over every
+    -ctk type (-ctv its default), the split pair -ctk q8_0 -ctv q4_0 and
+    Q4_0 pages (shuffled, 16 rows each); then a small DeepSeek-V2 with
+    -ctk q8_0, whose latent attention takes the plain path over the
+    quantized cache (no MLA decode kernel)."""
+    import numpy as np
+
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQ4KVCache
+    from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=512, n_ctx_train=128,
+                      rope=RopeParams(n_dims=128))
+    path = ROOT / "build" / "smoke" / "small-kv-q4_0.gguf"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_synth_gguf(str(path), cfg, "Q4_0", seed=7)
+    model = load_model(str(path))
+    path.unlink()
+    prompt = "hello world, the quick brown fox"
+    for (ctk, ctv), kernel in SMALL_KV_TYPES.items():
+        label = f"small_kv -ctk {ctk}" + (f" -ctv {ctv}" if ctv else "")
+        counts = small_model_check(None, prompt, ["qmm_q4_0", kernel], label, model=model,
+                                   ctx_kw={"kv_dtype": ctk, "kv_v_dtype": ctv}, n_stream=16)
+        records[kernel]["launches"] = records[kernel]["launches"] or counts[kernel]
+
+    def paged(device):
+        cache = PagedQ4KVCache.create(cfg.n_layers, 5, 1, 4, cfg.n_kv_heads, cfg.head_dim,
+                                      page_size=16, device=device)
+        cache.set_table_row(0, np.array([3, 0, 4, 1], np.int32))
+        return cache
+
+    small_model_check(None, prompt, ["qmm_q4_0", "flash_decode"], "small_kv paged q4_0",
+                      model=model, cache_fn=paged, n_stream=16)
+    ds_path = ROOT / "build" / "smoke" / "small-kv-ds-q4_1.gguf"
+    write_synth_gguf(str(ds_path), _small_ds_config(), "Q4_1", seed=6, vocab="deepseek-llm",
+                     experts=SMALL_DS_EXPERTS)
+    counts = small_model_check(ds_path, prompt, ["qmm_q4_1", "qmm_experts_q4_1"],
+                               "small_kv deepseek2 -ctk q8_0", ctx_kw={"kv_dtype": "q8_0"},
+                               n_stream=16)
+    if counts["mla_decode"]:
+        fail("MLA over a q8_0 latent cache launched the bf16 MLA decode kernel")
 
 
 def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "spm",
@@ -1077,17 +1292,18 @@ def _check_reply(r: dict) -> tuple[int, str, str]:
 
 def _slot_state(cache, idx: int) -> list:
     """Every cached row of slot idx, as stored (pages gathered)."""
-    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import QuantKVCache
-    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedKVCache, PagedQuantKVCache
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import _PlaneCache
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQ4KVCache, PagedQuantKVCache
 
+    if isinstance(cache, _PlaneCache):
+        return [b[idx].clone() for b in cache.planes()]
     if isinstance(cache, PagedQuantKVCache):
         pools = [*cache.k_qs, *cache.v_qs, *(p[:, :, 0] for p in (*cache.k_d, *cache.v_d))]
-        return [cache._gather(p)[idx].clone() for p in pools]
-    if isinstance(cache, PagedKVCache):
-        return [cache._gather(p)[idx].clone() for p in (*cache.k, *cache.v)]
-    if isinstance(cache, QuantKVCache):
-        return [b[idx].clone() for b in (*cache.k_qs, *cache.k_d, *cache.v_qs, *cache.v_d)]
-    return [b[idx].clone() for b in (*cache.k, *cache.v)]
+    elif isinstance(cache, PagedQ4KVCache):
+        pools = [*cache.k_qs, *cache.k_d, *cache.v_qs, *cache.v_d]
+    else:
+        pools = [*cache.k, *cache.v]
+    return [cache._gather(p)[idx].clone() for p in pools]
 
 
 @contextlib.contextmanager
@@ -1124,12 +1340,14 @@ MOE_LAYER_RTOL = 1e-3
 def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
                           moe_log: list | None = None):
     """LlamaContext's computation on the engine's weights: `forward` at B=1
-    over a contiguous cache of the engine's row type (bf16 or Q8_0), the
-    prompt as one prefill, then one decode step on the prompt's argmax.
+    over a contiguous cache of the engine's row type (bf16, Q8_0 or Q4_0; for
+    Q4_0 pages, one sequence's Q4_0 pages, whose decode dequantizes them as
+    the engine's does), the prompt as one prefill, then one decode step on
+    the prompt's argmax.
     Returns (that token, the decode step's logits, the row type). The row
     type is the engine's, so the comparison isolates the engine's path
-    (slots or pages, packed prefill, batched decode) from the Q8_0 rounding
-    of the rows, to which a random-weight model can be very sensitive.
+    (slots or pages, packed prefill, batched decode) from the rounding of
+    quantized rows, to which a random-weight model can be very sensitive.
 
     as_engine: the prompt as the engine's slot prefill runs it
     (`Engine._prefill_slot`: one chunk of the bucket's length, the padding
@@ -1140,16 +1358,26 @@ def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
     of the prompt's tokens, and one flip moves the logits by O(1).
     moe_log: a list that receives the decode step's MoE layer inputs and
     outputs (`_record_moe`)."""
+    import numpy as np
     import torch
 
     from llama_cpp_dsp_tpu_torch.models.llama import forward
-    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import QuantKVCache, make_kv_cache
-    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQuantKVCache
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import Q4KVCache, QuantKVCache, make_kv_cache
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQ4KVCache, PagedQuantKVCache
 
     cfg = engine.cfg
-    kv = "q8_0" if isinstance(engine.cache, (QuantKVCache, PagedQuantKVCache)) else "bf16"
-    cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.kv_cache_heads,
-                          cfg.kv_cache_dim, kv, "cuda")
+    kv = ("q8_0" if isinstance(engine.cache, (QuantKVCache, PagedQuantKVCache)) else
+          "q4_0" if isinstance(engine.cache, (Q4KVCache, PagedQ4KVCache)) else "bf16")
+    if isinstance(engine.cache, PagedQ4KVCache):  # the same attention path: one sequence's
+        # pages, dequantized, then flash_decode
+        nb, ps = engine.cache.tables.shape[1], engine.cache.page_size
+        cache = PagedQ4KVCache.create(cfg.n_layers, nb, 1, nb, cfg.kv_cache_heads,
+                                      cfg.kv_cache_dim, page_size=ps, device="cuda")
+        cache.set_table_row(0, np.arange(nb, dtype=np.int32))
+        kv = "paged q4_0"
+    else:
+        cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.kv_cache_heads,
+                              cfg.kv_cache_dim, kv, "cuda")
     n = len(prompt)
     t = engine._bucket(n) if as_engine else n
     toks = torch.zeros(1, t, dtype=torch.long)
@@ -1217,7 +1445,7 @@ def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
     got = logits[where[0]].float().cpu().numpy()
     rel = float(np.abs(got - ref_logits).max() / np.abs(ref_logits).max())
     print(f"  idle slot {idle} byte-identical after a B={b} decode step: {same}; first decode "
-          f"logits vs B=1 forward over a contiguous {kv} cache"
+          f"logits vs a B=1 forward over a one-sequence {kv} cache"
           f"{' (prefilled as the engine does)' if moe else ''}: max rel diff {rel:.3e} "
           f"({'MoE: gated layer by layer below' if moe else f'tol {LOGIT_RTOL:g}'}); "
           f"engine's own first token {reqs[0].result_tokens[0]} vs "
@@ -1263,14 +1491,69 @@ def _check_moe_layers(engine, ref_moe: list, eng_moe: list, row: int, rel: float
         fail("the batched decode step's first layer disagrees with the B=1 reference")
 
 
+def _cache_bytes(cache) -> int:
+    """Bytes of every buffer a cache holds (block tables included)."""
+    import torch
+
+    bufs = []
+    for v in vars(cache).values():
+        if torch.is_tensor(v):
+            bufs.append(v)
+        elif isinstance(v, list):
+            bufs += [t for t in v if torch.is_tensor(t)]
+        elif isinstance(v, dict):
+            bufs += [t for ts in v.values() for t in ts]
+    return sum(t.numel() * t.element_size() for t in bufs)
+
+
+def _slot_save_restore(engine, base: str) -> None:
+    """Through the server's /slots endpoints: save the slot holding the most
+    rows, restore the file into another slot, then run one greedy request
+    that starts with the saved tokens on each of the two (the first lands
+    on the lower slot id; that slot is then erased, so the second lands on
+    the other) and fail unless both continue alike from the cached rows."""
+    from llama_cpp_dsp_tpu_torch.runtime.engine import Request
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+
+    src = max(engine.slots, key=lambda s: len(s.cache_tokens))
+    dst = next(s for s in engine.slots if s is not src)
+    tokens = list(src.cache_tokens)
+    saved = _post(base, f"/slots/{src.idx}?action=save", {"filename": "smoke-slot.bin"})["body"]
+    restored = _post(base, f"/slots/{dst.idx}?action=restore",
+                     {"filename": "../smoke-slot.bin"})["body"]  # the basename is kept
+    print(f"    slot save {saved}, restore {restored}")
+    if not (saved["n_saved"] == restored["n_restored"] == len(tokens)
+            and dst.cache_tokens == tokens):
+        fail("slot restore did not bring back the saved rows and tokens")
+    prompt = tokens + [tokens[-1]]
+    outs, where = [], []
+    for _ in range(2):
+        cached = engine.metrics.get("prompt_tokens_cached", 0)
+        req = engine.submit(Request(0, list(prompt), max_new_tokens=16,
+                                    sampler=make_chain(temp=0)))
+        req.done.wait()
+        slot = next(s for s in engine.slots if s.cache_tokens[:len(prompt)] == prompt)
+        outs.append(req.result_tokens)
+        where.append(slot.idx)
+        if req.error or engine.metrics["prompt_tokens_cached"] - cached != len(tokens):
+            fail(f"slot {slot.idx}: the request did not reuse the {len(tokens)} restored rows "
+                 f"({req.error})")
+        _post(base, f"/slots/{slot.idx}?action=erase", {})
+    print(f"    greedy continuations of {len(tokens)} cached tokens from slots {where}: "
+          f"equal {outs[0] == outs[1]} ({outs[0]})")
+    if sorted(where) != sorted((src.idx, dst.idx)) or outs[0] != outs[1]:
+        fail("the restored slot does not continue as the saved one")
+
+
 def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: int = 1024,
-                system_repeat: int = 7, step_must=()) -> None:
+                system_repeat: int = 7, step_must=(), slot_io: bool = False) -> None:
     """The port's server in-process over each engine configuration: four
     concurrent requests through HTTP, two sharing a system prompt, the
     second of those sent once the first has decoded its first token (a
     mixed prompt+decode step, except on an MLA model, whose engine prefills
     per slot; a cached prefix). Chat requests go through the
-    GGUF's chat template (none: chatml)."""
+    GGUF's chat template (none: chatml). slot_io: then a slot save and
+    restore through /slots (`_slot_save_restore`)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1302,6 +1585,9 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
     for name, (flags, must) in configs.items():
         argv = ["-m", str(path), "--port", "0", "-np", "4", "-c", str(n_ctx), "--api-key",
                 "smoke", *flags]
+        if slot_io:
+            (ROOT / "build" / "smoke" / "slots").mkdir(parents=True, exist_ok=True)
+            argv += ["--slot-save-path", str(ROOT / "build" / "smoke" / "slots")]
         args = build_arg_parser().parse_args(argv)
         engine, _, httpd = build(args, model)
         mixed = []  # decoding slots carried by each packed prompt+decode step
@@ -1333,11 +1619,13 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
             wall = time.perf_counter() - t0
             torch.cuda.synchronize()
             counts = dict(LAUNCHES)
+            m = dict(engine.metrics)  # the burst's, before any slot save / restore
+            if slot_io:
+                _slot_save_restore(engine, base)
         finally:
             engine.stop()
             httpd.shutdown()
             httpd.server_close()
-        m = engine.metrics
         checked = [_check_reply(r) for r in replies]
         n_tok = sum(c[0] for c in checked)
         ttft = []
@@ -1366,7 +1654,9 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
             records[k]["launches"] = records[k]["launches"] or counts[k]
         texts[name] = [c[2] for c in checked]
         summary[name] = {"tokens_per_s": n_tok / wall, "ttft_ms": ttft,
-                         "cached": m["prompt_tokens_cached"], "launches": counts}
+                         "cached": m["prompt_tokens_cached"], "launches": counts,
+                         "kv_cache_bytes": _cache_bytes(engine.cache),
+                         "device_bytes_in_use": torch.cuda.memory_allocated()}
         _idle_slot_and_first_logits(engine, decode_prompts, step_must)
         del engine
         torch.cuda.empty_cache()
@@ -1425,6 +1715,175 @@ def phase_llama3(records: dict, path: Path, model) -> None:
     del ctx
     torch.cuda.empty_cache()
     phase_serve(records, path, model, SERVE_CONFIGS_L3, n_ctx=2048, system_repeat=16)
+
+
+SERVE_CONFIGS_KV8B = {  # name → (server flags, kernels its decode must launch)
+    "slots q4_0": (["-ctk", "q4_0"], ["flash_decode_q4", "qmm_q4_k", "qmm_q6_k"]),
+    "paged q4_0": (["--kv-layout", "paged", "-ctk", "q4_0"],
+                   ["flash_decode", "qmm_q4_k", "qmm_q6_k"]),
+}
+KV_TYPES = ("bf16", "f16", "f32", "q8_0", "q4_0", "q4_1", "q5_0", "q5_1", "iq4_nl")
+
+
+@contextlib.contextmanager
+def _swap_kernel(name: str, fn):
+    """The attention wrapper `name` is `fn(kernel)` inside the block (`fn`
+    wraps the kernel's wrapper or replaces it)."""
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+
+    kernel = getattr(ka, name)
+    setattr(ka, name, fn(kernel))
+    try:
+        yield
+    finally:
+        setattr(ka, name, kernel)
+
+
+def _new_row_codes(cache, n: int) -> list:
+    """The Q4_0 codes of row n in every layer's K then V plane, each
+    [B, Hkv, D]."""
+    from llama_cpp_dsp_tpu_torch.quant.kv_planes import q4_unpack_rows
+
+    return [q4_unpack_rows(qs[:, :, n // 2:n // 2 + 1])[:, :, n % 2].clone()
+            for qs in (*cache.k_qs, *cache.v_qs)]
+
+
+def _amplifier_witness(model, prompt: list, q4_codes: tuple) -> None:
+    """What grows B8's last-bit differences into the 8B's logits (printed,
+    not gated). q4_codes: the new row's codes after the -ctk q4_0 step with
+    B8 and after the step with its plain version (`_new_row_codes`): a code
+    that differs is a K/V value re-quantized a whole Q4 step apart. Then the
+    same pair of steps over a bf16 cache, where nothing is re-quantized: B2
+    against flash_decode_plain in every layer."""
+    import numpy as np
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+
+    n_layers = model.cfg.n_layers
+    a, b = q4_codes
+    per_layer = [int((x != y).sum()) + int((xv != yv).sum()) for x, y, xv, yv in
+                 zip(a[:n_layers], b[:n_layers], a[n_layers:], b[n_layers:])]
+    step_size = max(int((x - y).abs().max()) for x, y in zip(a, b))
+    hit = [i for i, c in enumerate(per_layer) if c]
+    print(f"  the new K/V row's Q4 codes, B8 step against plain step: {sum(per_layer)} of "
+          f"{sum(x.numel() for x in a)} differ, in {len(hit)} of {n_layers} layers (first "
+          f"{hit[0] if hit else None}; layer 0, whose input is the same, {per_layer[0]}), "
+          f"largest difference {step_size} code(s)")
+    ctx = LlamaContext(model, n_ctx=512)  # a bf16 cache
+    tok = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    step = ctx.eval_tokens([tok])
+    n_b2 = LAUNCHES["flash_decode"]
+    ctx.rollback_to(ctx.n_past - 1)
+    with _swap_kernel("flash_decode", lambda kernel: ka.flash_decode_plain):
+        ref = ctx.eval_tokens([tok])
+    rel = float(np.abs(step - ref).max() / np.abs(ref).max())
+    print(f"  the same step over a bf16 cache (no re-quantization): B2 ({n_b2} launches) "
+          f"against flash_decode_plain in every layer: max rel diff {rel:.3e}; same argmax "
+          f"{int(step.argmax()) == int(ref.argmax())}")
+    if n_b2 != n_layers:
+        fail(f"a bf16 decode step launched B2 {n_b2} times, not {n_layers}")
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def _recording(calls: list):
+    """A flash_decode_q4 that records each call's q, other arguments and
+    output. The cache planes it reads are the layers' own buffers, which the
+    rest of the step leaves as they were."""
+    def wrap(kernel):
+        def run(q, *args, **kw):
+            out = kernel(q, *args, **kw)
+            calls.append((q.clone(), args, kw, out.clone()))
+            return out
+        return run
+    return wrap
+
+
+def phase_kv8b(records: dict, path: Path, model) -> None:
+    """The KV cache types on Llama-3-8B Q4_K_M (the `llama3` phase's model):
+    the CLI with -ctk q4_0 (B8 in every layer of every decode step; the
+    first decode step's logits against the same step with B8's plain
+    version in every layer, over the same cache), the CLI with -ctk q8_0
+    -ctv q4_0 (B2 over the dequantized planes), the cache's bytes per token
+    for every type, then a four-slot server burst over Q4_0 slots and Q4_0
+    pages, each with a slot save and restore through /slots."""
+    import numpy as np
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import make_kv_cache
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+
+    cfg = model.cfg
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-ctk", "q4_0", "-c", "512", "-p", "hello", "-n", "32",
+                      "--temp", "0"], model)
+    counts = dict(LAUNCHES)
+    require(counts, ["flash_decode_q4", "qmm_q4_k", "qmm_q6_k"], "kv8b CLI -ctk q4_0")
+    if counts["flash_decode_q4"] % cfg.n_layers:
+        fail(f"B8 launched {counts['flash_decode_q4']} times: not {cfg.n_layers} a token")
+    records["flash_decode_q4"]["launches"] = counts["flash_decode_q4"]
+    print(f"  Llama-3-8B Q4_K_M CLI -ctk q4_0: {decode_tps(err):.2f} tokens/s decode, "
+          f"B8 {counts['flash_decode_q4']} launches = {cfg.n_layers} x "
+          f"{counts['flash_decode_q4'] // cfg.n_layers} decode steps")
+    ctx = LlamaContext(model, n_ctx=512, kv_dtype="q4_0")
+    prompt = model.tokenizer.encode("hello")
+    tok = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    calls = []
+    with _swap_kernel("flash_decode_q4", _recording(calls)):
+        step = ctx.eval_tokens([tok])
+    torch.cuda.synchronize()
+    codes_b8 = _new_row_codes(ctx.cache, ctx.n_past - 1)
+    n_b8 = LAUNCHES["flash_decode_q4"]
+    # each layer's B8 call against its plain version on the same inputs
+    layer_nmse = [max(slot_nmse(out, ka.flash_decode_q4_plain(q, *args, **kw)))
+                  for q, args, kw, out in calls]
+    ctx.rollback_to(ctx.n_past - 1)  # the same step again, B8's plain version in every layer
+    with _swap_kernel("flash_decode_q4", lambda kernel: ka.flash_decode_q4_plain):
+        ref = ctx.eval_tokens([tok])
+    codes_plain = _new_row_codes(ctx.cache, ctx.n_past - 1)
+    rel = float(np.abs(step - ref).max() / np.abs(ref).max())
+    print(f"  one decode step: B8 launched {n_b8} times ({cfg.n_layers} layers); each layer's "
+          f"B8 output against its plain version on the same inputs: worst per-slot NMSE "
+          f"{max(layer_nmse):.1e} (tol {FLASH_NMSE_TOL:g}); the step's logits against the step "
+          f"with flash_decode_q4_plain in every layer: max rel diff {rel:.3e} (not gated: what grows "
+          f"the kernels' last-bit differences is printed below); same argmax {int(step.argmax()) == int(ref.argmax())}; finite "
+          f"{bool(np.isfinite(step).all())}")
+    if n_b8 != cfg.n_layers or len(calls) != cfg.n_layers:
+        fail(f"a -ctk q4_0 decode step launched B8 {n_b8} times, not {cfg.n_layers}")
+    if not (max(layer_nmse) <= FLASH_NMSE_TOL and np.isfinite(step).all()):
+        fail("B8 on the -ctk q4_0 decode step disagrees with its plain version")
+    stream = list(ctx.generate(prompt, max_new_tokens=16, sampler=make_chain(temp=0)))
+    print(f"  -ctk q4_0 decode step at context {ctx.n_past}:")
+    profile_chunk(ctx, stream[-1])
+    del ctx
+    _amplifier_witness(model, prompt, (codes_b8, codes_plain))
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-ctk", "q8_0", "-ctv", "q4_0", "-c", "512", "-p",
+                      "hello", "-n", "16", "--temp", "0"], model)
+    require(dict(LAUNCHES), ["flash_decode", "qmm_q4_k"], "kv8b CLI -ctk q8_0 -ctv q4_0")
+    print(f"  Llama-3-8B Q4_K_M CLI -ctk q8_0 -ctv q4_0: {decode_tps(err):.2f} tokens/s decode")
+    per_token = {}
+    for t in KV_TYPES:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        cache = make_kv_cache(cfg.n_layers, 1, 512, cfg.kv_cache_heads, cfg.kv_cache_dim, t,
+                              "cuda")
+        per_token[t] = (_cache_bytes(cache) // 512, (torch.cuda.memory_allocated() - base) // 512)
+        del cache
+    print(f"  KV cache bytes per token at the 8B (buffers, device memory): {per_token}")
+    if per_token["bf16"][0] != 131072 or per_token["q8_0"][0] != 67584 \
+            or per_token["q4_0"][0] != 40960:
+        fail(f"cache bytes per token {per_token}")
+    phase_serve(records, path, model, SERVE_CONFIGS_KV8B, n_ctx=2048, system_repeat=16,
+                slot_io=True)
 
 
 def phase_q5km(records: dict) -> None:
@@ -1684,6 +2143,9 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     "flash_decode_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
                         "llama_cpp_dsp_tpu/ops/pallas/attention.py:420",
                         f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
+    "flash_decode_q4": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
+                        "llama_cpp_dsp_tpu/ops/pallas/attention.py:735",
+                        f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
     "flash_decode_paged": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
                            "llama_cpp_dsp_tpu/ops/pallas/attention.py:1022",
                            f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
@@ -1797,7 +2259,8 @@ def main(argv=None) -> int:
                                     for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
                                   *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
                                     for k, shapes in DS_QMM_SHAPES.items()),
-                                  check_flash_decode(records), check_attn_fused(records),
+                                  check_flash_decode(records),
+                                  check_flash_decode_q4(records), check_attn_fused(records),
                                   check_decode_variants(records), check_mla_decode(records))),
              ("small", phase_small),
              ("main", lambda: phase_main(records, files["7b"][0], model_of("7b"))),
@@ -1805,8 +2268,11 @@ def main(argv=None) -> int:
                                 done_with("7b"))),
              ("q8", lambda: phase_q8(records)),
              ("small_kq", phase_small_kq),
+             ("small_kv", lambda: phase_small_kv(records)),
              ("llama3", lambda: (phase_llama3(records, files["l3"][0], model_of("l3")),
-                                 done_with("l3"))),
+                                 "kv8b" in phases or done_with("l3"))),
+             ("kv8b", lambda: (phase_kv8b(records, files["l3"][0], model_of("l3")),
+                               done_with("l3"))),
              ("q5km", lambda: phase_q5km(records)),
              ("small_moe", lambda: phase_small_moe(records)),
              ("mixtral", lambda: (phase_mixtral(records, files["mx"][0], model_of("mx")),
@@ -1833,7 +2299,8 @@ def main(argv=None) -> int:
                         "max_nmse": r.get("max_nmse"), "tolerance": tol,
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        **({"by_row_type": r["by_row_type"]} if "by_row_type" in r else {})})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

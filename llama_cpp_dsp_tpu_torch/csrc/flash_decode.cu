@@ -1,20 +1,25 @@
 // flash_decode.cu — T=1 attention of q[B,H,D] f32 over one slot's cached
 // rows [start_b, length_b); GQA groups of rep = H/Hkv query heads share a kv
 // head; optional logit softcap. Output [B,H,D] f32. One templated split
-// kernel serves the four cache layouts:
-//   <Q8=false, PAGED=false>  bf16 k, v [B,Hkv,S,D]                  flash_decode
-//   <Q8=true,  PAGED=false>  int8 k, v [B,Hkv,S,D], f32 scales
-//                            kd, vd [B,Hkv,1,S] (one per row)        flash_decode_q8
-//   <Q8=false, PAGED=true>   bf16 pools [P,Hkv,ps,D], block tables
-//                            [B,max_blocks] int32                    flash_decode_paged
-//   <Q8=true,  PAGED=true>   int8 pools [P,Hkv,ps,D], f32 scales
-//                            [P,Hkv,1,ps], block tables              flash_decode_paged_q8
+// kernel serves the cache layouts:
+//   <BF16|F16|F32, PAGED=false>  k, v [B,Hkv,S,D] of bf16, f16 or f32      flash_decode
+//   <I8, PAGED=false>  int8 k, v [B,Hkv,S,D], f32 scales
+//                      kd, vd [B,Hkv,1,S] (one per row)                    flash_decode_q8
+//   <Q4, PAGED=false>  u8 k, v [B,Hkv,S/2,D]: row 2j in the low nibble of
+//                      byte row j, 2j+1 in the high one; f32 group scales
+//                      kd, vd [B,Hkv,2G,S/2], G = D/32, parity-major
+//                      (plane p*G+g, column j: group g of row 2j+p)         flash_decode_q4
+//   <BF16|F16|F32, PAGED=true>  pools [P,Hkv,ps,D], block tables
+//                      [B,max_blocks] int32                                flash_decode_paged
+//   <I8, PAGED=true>   int8 pools [P,Hkv,ps,D], f32 scales
+//                      [P,Hkv,1,ps], block tables                          flash_decode_paged_q8
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel and
 // ::_decode_kernel_allh (entry flash_decode), ::_decode_kernel_q8 and
-// ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_paged and
-// ::_decode_kernel_paged_allh (flash_decode_paged), ::_decode_kernel_paged_q8
-// and ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8).
+// ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_q4
+// (flash_decode_q4), ::_decode_kernel_paged and ::_decode_kernel_paged_allh
+// (flash_decode_paged), ::_decode_kernel_paged_q8 and
+// ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8).
 //
 // Bound on this card: the K/V bytes of the valid rows (and their scales)
 // over the memory rate; a few flops per byte. Design (split-S flash
@@ -22,18 +27,25 @@
 // the sequence is cut into splits of `chunk` rows, and a grid over (split,
 // kv head, slot) runs them in parallel so short batches still fill the card.
 // Inside a block four warps take interleaved rows; a warp reads one K row (4
-// dims per lane: 8 bytes of bf16 or 4 of int8), sums q·k with shuffles and
-// keeps an f32 online softmax per query head. The warps' states merge in
-// shared memory into one (m, l, acc) per split, and a second small kernel
-// merges the splits by log-sum-exp. Rows outside [start, length) are never
-// read, so ragged lengths and the SWA start need no masking pass. q is taken
-// in f32 and scaled before the dot, as the TPU kernels do. Q8 folds the row
-// scales as the TPU kernels do, never dequantizing the cache: the score is
-// (q·kq)·kd[row], then softcap; the value term is (p·vd[row])·vq. PAGED
-// addresses row r of slot b through page tables[b, r / ps] (an entry ≥ P is
-// clamped to P-1; blocks at or past the length are never read), so a split
-// is a run of whole pages and any page size works. D = 128 only (the
-// wrapper checks).
+// dims per lane: 8 bytes of bf16 or f16, 16 of f32, 4 of int8), sums q·k
+// with shuffles and keeps an f32 online softmax per query head. The warps'
+// states merge in shared memory into one (m, l, acc) per split, and a second
+// small kernel merges the splits by log-sum-exp. Rows outside
+// [start, length) are never read, so ragged lengths and the SWA start need
+// no masking pass. q is taken in f32 and scaled before the dot, as the TPU
+// kernels do. Q8 folds the row scales as the TPU kernels do, never
+// dequantizing the cache: the score is (q·kq)·kd[row], then softcap; the
+// value term is (p·vd[row])·vq. Q4 takes a byte row (two cache rows) per
+// warp step: a lane reads 4 bytes, its 4 dims of both rows, and the scales
+// of its dims' group (lane / 8) at the two parity planes; each row's score
+// is the sum over groups of kd·(q·(nibble − 8)), and its value term
+// (p·vd)·(nibble − 8) per group, as the TPU kernel folds them. The TPU
+// kernel's even/odd halves, lane masks and 256-row chunks are Mosaic
+// layouts and are not carried over; any even capacity works. PAGED
+// addresses row r of slot b through page tables[b, r / ps] (an entry ≥ P
+// is clamped to P-1; blocks at or past the length are never read), so a
+// split is a run of whole pages and any page size works. D = 128 only (the
+// wrappers check).
 #include <math.h>
 
 #include "common.cuh"
@@ -41,14 +53,18 @@
 namespace {
 
 constexpr int D = 128;
+constexpr int G = D / 32;  // Q4 scale groups per row
 constexpr int WARPS = 4;
+
+// element type of the cached rows (the C entries' `dtype` codes 0-2)
+enum RowType : int { BF16 = 0, F16 = 1, F32 = 2, I8 = 3, Q4 = 4 };
 
 struct DecodeArgs {
     const float* q;     // [B,H,D]
-    const void* k;      // K rows (bf16 or int8)
+    const void* k;      // K rows (bf16, f16, f32, int8 or Q4 byte rows)
     const void* v;      // V rows
-    const float* kd;    // Q8: K row scales, indexed like rows
-    const float* vd;    // Q8: V row scales
+    const float* kd;    // I8: K row scales, indexed like rows; Q4: group scales
+    const float* vd;    // I8: V row scales; Q4: group scales
     const int* tables;  // PAGED: [B, max_blocks]
     const int* lengths;
     const int* starts;  // may be null = 0
@@ -74,20 +90,84 @@ __device__ __forceinline__ size_t row_index(const DecodeArgs& a, int b, int hk, 
     return ((size_t)b * a.Hkv + hk) * a.S + row;
 }
 
-// 4 consecutive K or V elements of a row → f32
-template <bool Q8>
+// 4 consecutive K or V elements of a row → f32 (exact)
+template <int R>
 __device__ __forceinline__ void load4(const void* base, size_t off, float out[4]) {
-    if (Q8) {
+    if constexpr (R == I8) {
         const uint32_t u = *reinterpret_cast<const uint32_t*>(
             static_cast<const int8_t*>(base) + off);
 #pragma unroll
         for (int i = 0; i < 4; ++i) out[i] = (float)(int8_t)((u >> (8 * i)) & 0xffu);
+    } else if constexpr (R == F16) {
+        const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const __half*>(base) + off);
+        const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            out[i] = __half2float(__ushort_as_half((unsigned short)(w[i / 2] >> (16 * (i % 2)))));
+        }
+    } else if constexpr (R == F32) {
+        const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
+        out[0] = f.x;
+        out[1] = f.y;
+        out[2] = f.z;
+        out[3] = f.w;
     } else {
         load_bf16x4(static_cast<const __nv_bfloat16*>(base) + off, out);
     }
 }
 
-template <bool Q8, bool PAGED>
+// The rows [lo, hi) of (slot b, kv head hk) folded into one query head's
+// online softmax (m, l, acc) — every layout but Q4.
+template <int R, bool PAGED>
+__device__ __forceinline__ void fold_rows(const DecodeArgs& a, int b, int hk, int lo, int hi,
+                                          int warp, int lane, const float qv[4], float& m,
+                                          float& l, float acc[4]) {
+    for (int row = lo + warp; row < hi; row += WARPS) {
+        const size_t idx = row_index<PAGED>(a, b, hk, row);
+        float kf[4], vf[4];
+        load4<R>(a.k, idx * D + lane * 4, kf);
+        load4<R>(a.v, idx * D + lane * 4, vf);
+        float s = qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3];
+        s = warp_sum(s);
+        if (R == I8) s *= a.kd[idx];
+        if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+        softmax_step(s, vf, R == I8 ? a.vd[idx] : 1.f, m, l, acc);
+    }
+}
+
+// The Q4 form: a warp takes byte row j (cache rows 2j, 2j+1) per step.
+__device__ __forceinline__ void fold_rows_q4(const DecodeArgs& a, int b, int hk, int lo, int hi,
+                                             int warp, int lane, const float qv[4], float& m,
+                                             float& l, float acc[4]) {
+    const int s2 = a.S / 2;
+    const size_t bh = (size_t)b * a.Hkv + hk;
+    const uint8_t* kq = static_cast<const uint8_t*>(a.k) + bh * s2 * D + lane * 4;
+    const uint8_t* vq = static_cast<const uint8_t*>(a.v) + bh * s2 * D + lane * 4;
+    const float* kd = a.kd + (bh * 2 * G + (lane >> 3)) * s2;  // group lane/8, parity 0
+    const float* vd = a.vd + (bh * 2 * G + (lane >> 3)) * s2;
+    for (int j = (lo >> 1) + warp; 2 * j < hi; j += WARPS) {
+        const uint32_t kb = *reinterpret_cast<const uint32_t*>(kq + (size_t)j * D);
+        const uint32_t vb = *reinterpret_cast<const uint32_t*>(vq + (size_t)j * D);
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+            const int row = 2 * j + par;
+            if (row < lo || row >= hi) continue;  // the same for the whole warp
+            float kf[4], vf[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                kf[i] = (float)((int)((kb >> (8 * i + 4 * par)) & 15u) - 8);
+                vf[i] = (float)((int)((vb >> (8 * i + 4 * par)) & 15u) - 8);
+            }
+            const size_t sc = (size_t)par * G * s2 + j;
+            float s = (qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3]) * kd[sc];
+            s = warp_sum(s);
+            if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+            softmax_step(s, vf, vd[sc], m, l, acc);
+        }
+    }
+}
+
+template <int R, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32) decode_split(const DecodeArgs a) {
     const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -107,16 +187,10 @@ __global__ void __launch_bounds__(WARPS * 32) decode_split(const DecodeArgs a) {
             *reinterpret_cast<const float4*>(a.q + ((size_t)b * a.H + head) * D + lane * 4);
         const float qv[4] = {q4.x * a.scale, q4.y * a.scale, q4.z * a.scale, q4.w * a.scale};
         float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int row = lo + warp; row < hi; row += WARPS) {
-            const size_t idx = row_index<PAGED>(a, b, hk, row);
-            float kf[4], vf[4];
-            load4<Q8>(a.k, idx * D + lane * 4, kf);
-            load4<Q8>(a.v, idx * D + lane * 4, vf);
-            float s = qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3];
-            s = warp_sum(s);
-            if (Q8) s *= a.kd[idx];
-            if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
-            softmax_step(s, vf, Q8 ? a.vd[idx] : 1.f, m, l, acc);
+        if constexpr (R == Q4) {
+            fold_rows_q4(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
+        } else {
+            fold_rows<R, PAGED>(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
         }
         if (lane == 0) {
             sm_m[warp] = m;
@@ -172,15 +246,26 @@ flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ w
     out[bh * D + t] = aa / fmaxf(ll, 1e-30f);
 }
 
-template <bool Q8, bool PAGED>
+template <int R, bool PAGED>
 int launch(const DecodeArgs& a, void* out, int B, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    decode_split<Q8, PAGED><<<dim3(a.n_splits, a.Hkv, B), WARPS * 32, 0, st>>>(a);
+    decode_split<R, PAGED><<<dim3(a.n_splits, a.Hkv, B), WARPS * 32, 0, st>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     flash_decode_merge<<<dim3(a.H, B), D, 0, st>>>(a.ws_acc, a.ws_ml, static_cast<float*>(out),
                                                    a.n_splits);
     return (int)cudaGetLastError();
+}
+
+// a dense layout of element type `dtype` (RowType 0-2)
+template <bool PAGED>
+int launch_dense(const DecodeArgs& a, int dtype, void* out, int B, void* stream) {
+    switch (dtype) {
+        case BF16: return launch<BF16, PAGED>(a, out, B, stream);
+        case F16: return launch<F16, PAGED>(a, out, B, stream);
+        case F32: return launch<F32, PAGED>(a, out, B, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 DecodeArgs make_args(const void* q, const void* k, const void* kd, const void* v,
@@ -217,16 +302,17 @@ DecodeArgs make_args(const void* q, const void* k, const void* kd, const void* v
 // null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
 // [B*H*n_splits*2] scratch. D must be 128.
 
-// k, v bf16 [B,Hkv,S,D]; n_splits = ceil(S / chunk).
+// k, v [B,Hkv,S,D] of element type dtype (0 bf16, 1 f16, 2 f32);
+// n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode(const void* q, const void* k, const void* v, const void* lengths,
                              const void* starts, void* out, void* ws_acc, void* ws_ml, int B,
-                             int H, int Hkv, int S, int chunk, float scale, float softcap,
-                             void* stream) {
+                             int H, int Hkv, int S, int chunk, int dtype, float scale,
+                             float softcap, void* stream) {
     const int n_splits = (S + chunk - 1) / chunk;
-    return launch<false, false>(make_args(q, k, nullptr, v, nullptr, nullptr, lengths, starts,
-                                          ws_acc, ws_ml, H, Hkv, S, 0, 0, chunk, n_splits,
-                                          scale, softcap),
-                                out, B, stream);
+    return launch_dense<false>(make_args(q, k, nullptr, v, nullptr, nullptr, lengths, starts,
+                                         ws_acc, ws_ml, H, Hkv, S, 0, 0, chunk, n_splits,
+                                         scale, softcap),
+                               dtype, out, B, stream);
 }
 
 // kq, vq int8 [B,Hkv,S,D]; kd, vd f32 [B,Hkv,1,S]; n_splits = ceil(S / chunk).
@@ -235,24 +321,40 @@ KERNELS_API int flash_decode_q8(const void* q, const void* kq, const void* kd, c
                                 void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
                                 int S, int chunk, float scale, float softcap, void* stream) {
     const int n_splits = (S + chunk - 1) / chunk;
-    return launch<true, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
-                                         ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
-                                         softcap),
-                               out, B, stream);
+    return launch<I8, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
+                                       ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
+                                       softcap),
+                             out, B, stream);
 }
 
-// k, v bf16 pools [P,Hkv,ps,D]; tables int32 [B,max_blocks]; a split is
-// pages_per_split pages; n_splits = ceil(max_blocks / pages_per_split).
+// kq, vq u8 [B,Hkv,S/2,D] row pairs; kd, vd f32 [B,Hkv,2G,S/2] parity-major
+// group scales; S (the capacity in rows) even and chunk even;
+// n_splits = ceil(S / chunk).
+KERNELS_API int flash_decode_q4(const void* q, const void* kq, const void* kd, const void* vq,
+                                const void* vd, const void* lengths, const void* starts,
+                                void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
+                                int S, int chunk, float scale, float softcap, void* stream) {
+    if (S % 2 || chunk % 2) return (int)cudaErrorInvalidValue;
+    const int n_splits = (S + chunk - 1) / chunk;
+    return launch<Q4, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
+                                       ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
+                                       softcap),
+                             out, B, stream);
+}
+
+// k, v pools [P,Hkv,ps,D] of element type dtype (0 bf16, 1 f16, 2 f32);
+// tables int32 [B,max_blocks]; a split is pages_per_split pages;
+// n_splits = ceil(max_blocks / pages_per_split).
 KERNELS_API int flash_decode_paged(const void* q, const void* k, const void* v,
                                    const void* tables, const void* lengths, const void* starts,
                                    void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
                                    int ps, int max_blocks, int n_pages, int pages_per_split,
-                                   float scale, float softcap, void* stream) {
+                                   int dtype, float scale, float softcap, void* stream) {
     const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
-    return launch<false, true>(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts,
-                                         ws_acc, ws_ml, H, Hkv, ps, max_blocks, n_pages,
-                                         pages_per_split * ps, n_splits, scale, softcap),
-                               out, B, stream);
+    return launch_dense<true>(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts,
+                                        ws_acc, ws_ml, H, Hkv, ps, max_blocks, n_pages,
+                                        pages_per_split * ps, n_splits, scale, softcap),
+                              dtype, out, B, stream);
 }
 
 // kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables as above.
@@ -263,8 +365,8 @@ KERNELS_API int flash_decode_paged_q8(const void* q, const void* kq, const void*
                                       int max_blocks, int n_pages, int pages_per_split,
                                       float scale, float softcap, void* stream) {
     const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
-    return launch<true, true>(make_args(q, kq, kd, vq, vd, tables, lengths, starts, ws_acc,
-                                        ws_ml, H, Hkv, ps, max_blocks, n_pages,
-                                        pages_per_split * ps, n_splits, scale, softcap),
-                              out, B, stream);
+    return launch<I8, true>(make_args(q, kq, kd, vq, vd, tables, lengths, starts, ws_acc,
+                                      ws_ml, H, Hkv, ps, max_blocks, n_pages,
+                                      pages_per_split * ps, n_splits, scale, softcap),
+                            out, B, stream);
 }

@@ -7,9 +7,12 @@ kv_cache_dim = kv_lora_rank + qk_rope_dim padded to a 128 multiple:
 JAX package writes it. The key up-projection W_uk is absorbed into the
 query (q_nope·(W_uk c) = (W_ukᵀ q_nope)·c), so attention runs over the
 latents, and W_uv is applied to the attention-weighted latent after.
-Decode (T = 1 over a bf16 `KVCache`) runs the latent-attention kernel
-(`ops/kernels/attention.py::mla_flash_decode`, B10); prefill and other
-caches take the plain einsum path, as the JAX package's XLA path does.
+The latent entry goes into whatever cache -ctk / -ctv made (quantized
+caches quantize it as any row). Decode (T = 1 over a bf16 `KVCache`) runs
+the latent-attention kernel (`ops/kernels/attention.py::mla_flash_decode`,
+B10); prefill and the other caches (f16, f32, q8_0, q4_0, ..., read through
+`cache.layer`) take the plain einsum path, as the JAX package's XLA path
+does for its quantized caches.
 
 The surrounding layer (norms, the dense FFN of the leading layers, MoE
 with shared experts) is the generic one of models/llama.py.

@@ -12,8 +12,12 @@ DeepSeek-V2 layers (cfg.kv_lora_rank > 0) take multi-head latent attention
 
 Decode (T=1) takes the fused attention kernel when `fused` is on, the
 cache is the bf16 `KVCache` and the layer fits its scope; otherwise the
-decode kernel of the cache's type (head_dim 128): flash_decode,
-flash_decode_q8, flash_decode_paged or flash_decode_paged_q8. Prefill (T>1),
+decode kernel of the cache's type (head_dim 128): flash_decode (bf16, f16
+or f32 rows), flash_decode_q8 (q8_0), flash_decode_q4 (q4_0),
+flash_decode_paged (bf16, f16 or f32 pages) or flash_decode_paged_q8 (q8_0
+pages). A `MixedKVCache` (a split -ctk / -ctv, or q4_1, q5_0, q5_1,
+iq4_nl) and Q4_0 pages are dequantized (`cache.layer`) and decoded by
+flash_decode, as the JAX package does. Prefill (T>1),
 other head dims and the packed mixed prompt+decode step (`forward_packed`)
 take the plain `attention` below, as the JAX package's XLA path does.
 `n_past`, the cache write offset, is a scalar or a [B] tensor (batched
@@ -33,7 +37,7 @@ import torch
 from ..gguf.constants import GGMLType
 from ..ops import QTensor, qmm, rms_norm, silu, softmax_f32, take_rows
 from ..ops.rope import RopeParams, _rope_angles, apply_rope
-from ..runtime.kv_cache import KVCache, QuantKVCache, causal_mask
+from ..runtime.kv_cache import KVCache, Q4KVCache, QuantKVCache, causal_mask
 from ..runtime.paged_kv import PagedKVCache, PagedQuantKVCache
 from .deepseek2 import mla_self_attention
 
@@ -270,9 +274,11 @@ def _cached_attention(q, k, v, layer, cfg: LlamaConfig, positions, cache, layer_
     scale = 1.0 / math.sqrt(d)
     if t == 1 and h % hkv == 0 and d == 128:
         # decode kernel of the cache's type (JAX llama.py:682-716). The TPU
-        # gates capacity % 128 and, for paged q8, page_size % 128 are not
-        # carried over: they are Mosaic lane layouts, and these kernels take
-        # any capacity and any page size.
+        # gates capacity % 128 (q8), capacity % 256 (q4) and, for paged q8,
+        # page_size % 128 are not carried over: they are Mosaic lane layouts,
+        # and these kernels take any capacity and any page size. A mixed
+        # cache and Q4_0 pages go through `layer` (dequantized) and
+        # flash_decode, as in JAX.
         from ..ops.kernels import attention as ka
 
         lengths = positions[:, 0] + 1
@@ -282,6 +288,9 @@ def _cached_attention(q, k, v, layer, cfg: LlamaConfig, positions, cache, layer_
         elif isinstance(cache, PagedKVCache):
             attn = ka.flash_decode_paged(q[:, 0], cache.k[layer_idx], cache.v[layer_idx],
                                          cache.tables, lengths, scale=scale)
+        elif isinstance(cache, Q4KVCache):
+            attn = ka.flash_decode_q4(q[:, 0], *cache.packed_layer(layer_idx), lengths,
+                                      scale=scale)
         elif isinstance(cache, QuantKVCache):
             attn = ka.flash_decode_q8(q[:, 0], *cache.packed_layer(layer_idx), lengths,
                                       scale=scale)

@@ -27,6 +27,7 @@ LAUNCHES: dict[str, int] = {
     "qmm_experts_q6_k": 0,
     "flash_decode": 0,
     "flash_decode_q8": 0,
+    "flash_decode_q4": 0,
     "flash_decode_paged": 0,
     "flash_decode_paged_q8": 0,
     "attn_fused": 0,

@@ -1,32 +1,40 @@
-"""Decode attention (T=1) over the KV caches: bf16 (`flash_decode`), Q8_0
-rows (`flash_decode_q8`), bf16 pages (`flash_decode_paged`) and Q8_0 pages
+"""Decode attention (T=1) over the KV caches: dense rows of bf16, f16 or f32
+(`flash_decode`), Q8_0 rows (`flash_decode_q8`), Q4_0 row pairs
+(`flash_decode_q4`), dense pages (`flash_decode_paged`) and Q8_0 pages
 (`flash_decode_paged_q8`); and DeepSeek-V2's latent attention over an MLA
 cache (`mla_flash_decode`, csrc/mla_decode.cu).
 
 Counterpart of the JAX package's ops/pallas/attention.py entries of the same
-names. All four run one templated CUDA kernel (csrc/flash_decode.cu):
+names. All five run one templated CUDA kernel (csrc/flash_decode.cu):
 split-S flash decoding with a log-sum-exp merge of the splits. A q8 score
 is (q·kq)·kd[row] and a q8 value term (p·vd[row])·vq, as the TPU kernels
-fold the row scales; no cache is dequantized into a buffer. A paged split
-is a run of pages read through the block table.
+fold the row scales; a q4 score sums kd[row, g]·(q·(k − 8)) over the 32-wide
+groups g and its value term folds vd[row, g] the same way; no cache is
+dequantized into a buffer. A paged split is a run of pages read through the
+block table. Where K and V come in two dense types, both are taken in f32
+(exact: the kernel converts every element to f32 as it loads it).
 
 Tolerances against the JAX kernels (plain versions, CPU): atol 2e-5 with
 f32 inputs and 2e-3 with a bf16 cache (tests/test_flash_attention.py), 1e-5
-for the q8 and paged forms (tests/test_quant_kv.py, tests/test_paged_kv.py);
-sums are taken in another order. Kernel against plain version on the card
-(chip_smoke.py): per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds;
-the same limit for `mla_flash_decode`.
+for the q8, q4 and paged forms (tests/test_quant_kv.py,
+tests/test_torch_q4_kv.py, tests/test_paged_kv.py); sums are taken in
+another order. Kernel against plain version on the card (chip_smoke.py):
+per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds; the same limit for
+`mla_flash_decode`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...quant.kv_planes import q4_deq_plane
 from . import LAUNCHES, aligned16, stream_handle
 
 SPLIT_ROWS = 64  # cache rows per split (one block per split, kv head and slot)
 HEAD_DIM = 128
 _Q8_DTYPES = (torch.int8, torch.float32, torch.int8, torch.float32)
+_Q4_DTYPES = (torch.uint8, torch.float32, torch.uint8, torch.float32)
+_ROW_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # the C entries' codes
 
 
 def _softmax_out(sc, v, lengths, starts, softcap, vscale=None):
@@ -67,6 +75,18 @@ def flash_decode_q8_plain(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scal
     qf = q.float().reshape(b, hkv, h // hkv, d) * scale
     sc = torch.einsum("bhrd,bhsd->bhrs", qf, k_qs.float()) * k_d
     return _softmax_out(sc, v_qs, lengths, starts, softcap, vscale=v_d)
+
+
+def flash_decode_q4_plain(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,D]; u8 row-pair planes k_qs/v_qs [B,Hkv,S/2,D]; parity-major f32
+    group scales k_d/v_d [B,Hkv,2G,S/2] → [B,H,D] f32: the rows unpacked and
+    scaled in f32, then the masked softmax of flash_decode_plain."""
+    b, h, d = q.shape
+    hkv = k_qs.shape[1]
+    qf = q.float().reshape(b, hkv, h // hkv, d) * scale
+    sc = torch.einsum("bhrd,bhsd->bhrs", qf, q4_deq_plane(k_qs, k_d, torch.float32))
+    return _softmax_out(sc, q4_deq_plane(v_qs, v_d, torch.float32), lengths, starts, softcap)
 
 
 def _gather_pages(pool, tables):
@@ -130,16 +150,29 @@ def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int
     return out
 
 
+def _row_type(name: str, k, v):
+    """(k, v, code): dense K/V of one of the kernel's row types; two
+    different types are both taken in f32."""
+    if k.dtype not in _ROW_TYPES or v.dtype not in _ROW_TYPES:
+        raise ValueError(f"{name}: rows {k.dtype} / {v.dtype}: the kernel takes bf16, f16 and "
+                         "f32")
+    if k.dtype != v.dtype:
+        k, v = k.float(), v.float()
+    return k, v, _ROW_TYPES[k.dtype]
+
+
 def flash_decode(q, k, v, lengths, starts=None, *, scale: float,
                  softcap: float = 0.0) -> torch.Tensor:
-    """q [B,H,D] (roped, taken in f32), bf16 k/v [B,Hkv,S,D] → [B,H,D] f32."""
+    """q [B,H,D] (roped, taken in f32), k/v [B,Hkv,S,D] of bf16, f16 or f32
+    → [B,H,D] f32."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, starts, scale=scale, softcap=softcap)
     s = k.shape[2]
     if k.shape != v.shape or k.shape[0] != q.shape[0]:
         raise ValueError(f"flash_decode: k {tuple(k.shape)} v {tuple(v.shape)} q {tuple(q.shape)}")
-    return _launch("flash_decode", q, (k, v), (torch.bfloat16,) * 2, None, lengths, starts,
-                   -(-s // SPLIT_ROWS), (s, SPLIT_ROWS), scale, softcap)
+    k, v, code = _row_type("flash_decode", k, v)
+    return _launch("flash_decode", q, (k, v), (k.dtype,) * 2, None, lengths, starts,
+                   -(-s // SPLIT_ROWS), (s, SPLIT_ROWS, code), scale, softcap)
 
 
 def flash_decode_q8(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,
@@ -157,6 +190,25 @@ def flash_decode_q8(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: flo
                    starts, -(-s // SPLIT_ROWS), (s, SPLIT_ROWS), scale, softcap)
 
 
+def flash_decode_q4(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention over a Q4_0 cache (JAX ops/pallas/attention.py
+    ::flash_decode_q4): q [B,H,D] taken in f32; u8 k_qs/v_qs [B,Hkv,S/2,D]
+    (row 2j in the low nibble of byte row j, 2j+1 in the high one); f32
+    k_d/v_d [B,Hkv,2G,S/2] parity-major group scales, G = D/32 → [B,H,D] f32
+    over rows [start, length). Any even capacity S."""
+    if q.device.type == "cpu":
+        return flash_decode_q4_plain(q, k_qs, k_d, v_qs, v_d, lengths, starts, scale=scale,
+                                     softcap=softcap)
+    b, hkv, s2, d = k_qs.shape
+    if (v_qs.shape != k_qs.shape or k_d.shape != (b, hkv, 2 * (d // 32), s2)
+            or v_d.shape != k_d.shape or b != q.shape[0]):
+        raise ValueError(f"flash_decode_q4: k_qs {tuple(k_qs.shape)} k_d {tuple(k_d.shape)} "
+                         f"v_qs {tuple(v_qs.shape)} v_d {tuple(v_d.shape)} q {tuple(q.shape)}")
+    return _launch("flash_decode_q4", q, (k_qs, k_d, v_qs, v_d), _Q4_DTYPES, None, lengths,
+                   starts, -(-2 * s2 // SPLIT_ROWS), (2 * s2, SPLIT_ROWS), scale, softcap)
+
+
 def _pages_per_split(ps: int) -> int:
     return max(1, SPLIT_ROWS // ps)
 
@@ -172,16 +224,18 @@ def _paged_tail(name, pool, tables, q):
 
 def flash_decode_paged(q, k_pages, v_pages, tables, lengths, starts=None, *, scale: float,
                        softcap: float = 0.0) -> torch.Tensor:
-    """q [B,H,D]; bf16 pools [P,Hkv,ps,D]; tables [B,max_blocks] int32 page
-    ids (an entry ≥ P is clamped to P-1 and never read below the length)."""
+    """q [B,H,D]; pools [P,Hkv,ps,D] of bf16, f16 or f32; tables
+    [B,max_blocks] int32 page ids (an entry ≥ P is clamped to P-1 and never
+    read below the length)."""
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_pages, v_pages, tables, lengths, starts,
                                         scale=scale, softcap=softcap)
     if v_pages.shape != k_pages.shape:
         raise ValueError(f"flash_decode_paged: k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
+    k_pages, v_pages, code = _row_type("flash_decode_paged", k_pages, v_pages)
     n_splits, tail = _paged_tail("flash_decode_paged", k_pages, tables, q)
-    return _launch("flash_decode_paged", q, (k_pages, v_pages), (torch.bfloat16,) * 2, tables,
-                   lengths, starts, n_splits, tail, scale, softcap)
+    return _launch("flash_decode_paged", q, (k_pages, v_pages), (k_pages.dtype,) * 2, tables,
+                   lengths, starts, n_splits, (*tail, code), scale, softcap)
 
 
 def flash_decode_paged_q8(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None, *,

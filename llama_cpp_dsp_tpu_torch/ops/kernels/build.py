@@ -48,9 +48,12 @@ _SIGNATURES = {
     "qmm_experts_q4_k": [_P] * 8 + [_I] * 4 + [_P],
     "qmm_experts_q5_k": [_P] * 9 + [_I] * 4 + [_P],
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # q, k, v, lengths, starts, out, ws_acc, ws_ml; B, H, Hkv, S, chunk, row type
+    "flash_decode": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     "flash_decode_q8": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    "flash_decode_paged": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
+    "flash_decode_q4": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    # ... tables ...; B, H, Hkv, ps, max_blocks, n_pages, pages_per_split, row type
+    "flash_decode_paged": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
     "flash_decode_paged_q8": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     # q, c, lengths, out, ws_acc, ws_ml; B, H, C, r, S, split_rows; scale
     "mla_decode": [_P] * 6 + [_I] * 7 + [_F, _P],

@@ -1,9 +1,10 @@
 """GGUF block records of the kinds this port runs (Q4_0, Q4_1, Q5_0, Q5_1,
 Q8_0, Q4_K, Q5_K, Q6_K).
 
-The block dtypes, `_blocks`, `_f32` and `unpack_scale_min_k4` of the JAX
-package's quant/ref_numpy.py, cut down to the kinds on the port's path; the
-layouts match ggml-common.h.
+The block dtypes, `_blocks`, `_f32`, `unpack_scale_min_k4` and the IQ4_NL
+codebook `KVALUES_IQ4NL` (the iq4_nl KV cache's) of the JAX package's
+quant/ref_numpy.py, cut down to the kinds on the port's path; the layouts
+match ggml-common.h.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ DT = {
     GGMLType.Q6_K: np.dtype(
         [("ql", "u1", (128,)), ("qh", "u1", (64,)), ("scales", "i1", (16,)), ("d", "<f2")]),
 }
+
+# the 16 non-linear IQ4_NL levels (ggml-quants.c kvalues_iq4nl)
+KVALUES_IQ4NL = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.int8,
+)
 
 
 def _blocks(raw: np.ndarray, t: GGMLType) -> np.ndarray:

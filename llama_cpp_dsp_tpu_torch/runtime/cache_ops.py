@@ -6,16 +6,13 @@ edits are queued in ROADMAP.md queue A2.
 
 from __future__ import annotations
 
-from .kv_cache import KVCache, QuantKVCache
+from .kv_cache import _PlaneCache
 
 
-def copy_slot(cache: KVCache | QuantKVCache, src_slot: int, dst_slot: int) -> None:
+def copy_slot(cache, src_slot: int, dst_slot: int) -> None:
     """seq_cp: copy one slot's cells into another slot, in place, in every
-    layer's buffers (reference llama_kv_self_seq_cp)."""
-    if isinstance(cache, QuantKVCache):
-        planes = (cache.k_qs, cache.k_d, cache.v_qs, cache.v_d)
-    else:
-        planes = (cache.k, cache.v)
-    for bufs in planes:
-        for buf in bufs:
-            buf[dst_slot].copy_(buf[src_slot])
+    buffer of every layer (reference llama_kv_self_seq_cp)."""
+    if not isinstance(cache, _PlaneCache):
+        raise TypeError(f"copy_slot: {type(cache).__name__} is not a contiguous cache")
+    for buf in cache.planes():
+        buf[dst_slot].copy_(buf[src_slot])

@@ -1,9 +1,9 @@
 """Decode context — counterpart of the JAX package's runtime/context.py
 (`convert_params_to_kernel`, `LlamaContext`).
 
-Owns the device params and the bf16 KV cache (the other cache types are
-queued in ROADMAP.md), evaluates prompts and decode steps in bf16, and
-drives generation. JAX's jit-compiled steps become eager calls;
+Owns the device params and the KV cache of any -ctk / -ctv type
+(`make_kv_cache`), evaluates prompts and decode steps in bf16, and drives
+generation. JAX's jit-compiled steps become eager calls;
 its `lax.scan` of fused decode+sample steps becomes a Python loop that keeps
 each sampled token on the device and brings the chunk's ids back at once.
 """
@@ -21,7 +21,7 @@ from .. import resolve_device
 from ..models.llama import forward
 from ..ops.device_sampling import sample_logits
 from ..ops.qtensor import QTensor
-from .kv_cache import KVCache
+from .kv_cache import make_kv_cache
 from .loader import LoadedModel, map_tensors
 from .sampling import Greedy, SamplerChain
 
@@ -99,6 +99,9 @@ class LlamaContext:
         device=None,  # None → the card; "cpu" runs the kernels' plain versions
         fused_attn: bool = True,  # decode through the fused QKV+rope+write+attention
         # kernel where in scope; off, decode attention takes flash decode
+        kv_dtype: str = "bf16",  # -ctk: f32 | f16 | bf16 | q8_0 | q4_0 | q4_1 | q5_0
+        # | q5_1 | iq4_nl
+        kv_v_dtype: str | None = None,  # -ctv, when V's type differs from K's
     ):
         self.device = resolve_device(device)
         self.cfg = model.cfg
@@ -109,8 +112,9 @@ class LlamaContext:
         self.fused_attn = fused_attn
         self.params = convert_params_to_kernel(
             map_tensors(model.params, lambda t: t.to(self.device)))
-        self.cache = KVCache.create(self.cfg.n_layers, 1, n_ctx, self.cfg.kv_cache_heads,
-                                    self.cfg.kv_cache_dim, self.device)
+        self.cache = make_kv_cache(self.cfg.n_layers, 1, n_ctx, self.cfg.kv_cache_heads,
+                                   self.cfg.kv_cache_dim, kv_dtype, self.device,
+                                   v_type=kv_v_dtype)
         self.generator = torch.Generator(device=self.device)
         self.n_past = 0
         self.perf = PerfCounters()
@@ -121,6 +125,16 @@ class LlamaContext:
         pos = torch.arange(n_past, n_past + t, dtype=torch.int32, device=self.device)[None]
         return forward(self.params, self.cfg, tokens, pos, self.cache, n_past,
                        fused=self.fused_attn)
+
+    def reset(self) -> None:
+        self.n_past = 0
+
+    def rollback_to(self, n_past: int) -> None:
+        """Forget the rows past n_past: only the counter moves, since a row is
+        written again before it can be attended."""
+        if not 0 <= n_past <= self.n_past:
+            raise ValueError(f"rollback to {n_past} outside [0, {self.n_past}]")
+        self.n_past = n_past
 
     def _account(self, key, dt_ms: float, n: int, decode: bool) -> None:
         if key not in self._seen_shapes:

@@ -1,8 +1,9 @@
 """Continuous-batching engine (counterpart of the JAX package's
 runtime/engine.py: `SlotState`, `Request`, `_Slot`, `Engine`).
 
-N fixed slots share one batched KV cache (contiguous slots, or paged with
-shared-prefix pages; bf16 or Q8_0 rows). Prompt processing is chunked into
+N fixed slots share one batched KV cache (contiguous slots of any -ctk /
+-ctv type, or paged with shared-prefix pages of f32, f16, bf16, Q8_0 or
+Q4_0 rows). Prompt processing is chunked into
 bucketed shapes; all generating slots decode together in one [B, 1] step
 per iteration, and when prompt work and decode work are both pending (or on
 the paged layout) one packed prompt+decode pass serves them together.
@@ -36,9 +37,9 @@ from ..models.llama import forward, forward_packed
 from ..ops.device_sampling import sample_logits
 from .cache_ops import copy_slot
 from .context import convert_params_to_kernel
-from .kv_cache import make_kv_cache
+from .kv_cache import _DENSE_DTYPES, make_kv_cache, norm_kv_type
 from .loader import LoadedModel, map_tensors
-from .paged_kv import PageAllocator, PagedKVCache, PagedQuantKVCache, PagedSeq
+from .paged_kv import PageAllocator, PagedKVCache, PagedQ4KVCache, PagedQuantKVCache, PagedSeq
 from .sampling import SamplerChain, make_chain
 
 log = logging.getLogger(__name__)
@@ -101,7 +102,9 @@ class Engine:
         *,
         n_slots: int = 4,
         n_ctx_per_slot: int = 1024,
-        kv_dtype: str = "bf16",  # -ctk: bf16 | q8_0
+        kv_dtype: str = "bf16",  # -ctk: f32 | f16 | bf16 | q8_0 | q4_0 | q4_1 | q5_0 | q5_1
+        # | iq4_nl (paged: f32, f16, bf16, q8_0, q4_0)
+        kv_v_dtype: str | None = None,  # -ctv, when V's type differs from K's (slots only)
         prefill_buckets: tuple[int, ...] = (32, 128, 512),
         context_shift: bool = False,
         kv_layout: str = "slots",  # "slots" | "paged" (shared-prefix pages)
@@ -124,37 +127,50 @@ class Engine:
         self.n_ctx = n_ctx_per_slot
         self.prefill_buckets = [b for b in prefill_buckets if b <= n_ctx_per_slot] or [
             n_ctx_per_slot]
-        kv_dtype = {"q8": "q8_0"}.get(kv_dtype, kv_dtype)
+        kv_dtype = norm_kv_type(kv_dtype)
         # JAX engine.py::_mixed_ok: MLA never takes the packed prompt+decode
         # pass (per-slot prefill, then the batched decode step), so it has
         # no paged layout
         self._mixed_ok = not cfg.kv_lora_rank
-        if kv_layout == "paged" and not self._mixed_ok:
-            raise ValueError(f"kv_layout='paged' requires the packed decoder path "
-                             f"(arch {cfg.arch} runs MLA)")
-        if cfg.kv_lora_rank and kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"-ctk {kv_dtype} with MLA: the port's MLA cache is bf16 "
-                "(ROADMAP.md queue A5)")
+        if kv_layout == "paged":
+            # the JAX engine's rules and wording (engine.py:163-200)
+            if kv_v_dtype is not None and norm_kv_type(kv_v_dtype) != kv_dtype:
+                raise ValueError("paged KV does not support split -ctk/-ctv "
+                                 f"({kv_dtype} vs {kv_v_dtype}); use kv_layout='slots'")
+            if kv_dtype not in ("q8_0", "q4_0", *_DENSE_DTYPES):
+                raise ValueError(f"paged KV does not support -ctk {kv_dtype}; "
+                                 "use q8_0/q4_0 or kv_layout='slots'")
+            if not self._mixed_ok:
+                raise ValueError(f"kv_layout='paged' requires the packed decoder path "
+                                 f"(arch {cfg.arch} runs MLA)")
         self.params = convert_params_to_kernel(
             map_tensors(model.params, lambda t: t.to(self.device)))
         self.kv_layout = kv_layout
+        # serializes engine steps with slot save / restore / erase, which
+        # the server runs on its own threads
+        self.step_lock = threading.Lock()
         if kv_layout == "paged":
             blocks = -(-n_ctx_per_slot // page_size)
             self.n_ctx = blocks * page_size
             n_pages = n_slots * blocks + n_slots  # + copy-on-write slack
             self._page_alloc = PageAllocator(n_pages)
             self._seqs = [PagedSeq(self._page_alloc, blocks) for _ in range(n_slots)]
-            if kv_dtype not in ("bf16", "q8_0"):
-                raise NotImplementedError(
-                    f"paged KV -ctk {kv_dtype}: the port pages bf16 and q8_0 rows "
-                    "(ROADMAP.md queue A5)")
-            cls = PagedQuantKVCache if kv_dtype == "q8_0" else PagedKVCache
-            self.cache = cls.create(cfg.n_layers, n_pages, n_slots, blocks, cfg.kv_cache_heads,
-                                    cfg.kv_cache_dim, page_size=page_size, device=self.device)
+            geometry = (cfg.n_layers, n_pages, n_slots, blocks, cfg.kv_cache_heads,
+                        cfg.kv_cache_dim)
+            if kv_dtype == "q8_0":
+                self.cache = PagedQuantKVCache.create(*geometry, page_size=page_size,
+                                                      device=self.device)
+            elif kv_dtype == "q4_0":
+                self.cache = PagedQ4KVCache.create(*geometry, page_size=page_size,
+                                                   device=self.device)
+            else:
+                self.cache = PagedKVCache.create(*geometry, page_size=page_size,
+                                                 device=self.device,
+                                                 dtype=_DENSE_DTYPES[kv_dtype])
         elif kv_layout == "slots":
             self.cache = make_kv_cache(cfg.n_layers, n_slots, n_ctx_per_slot, cfg.kv_cache_heads,
-                                       cfg.kv_cache_dim, kv_dtype, device=self.device)
+                                       cfg.kv_cache_dim, kv_dtype, device=self.device,
+                                       v_type=kv_v_dtype)
         else:
             raise ValueError(f"kv_layout {kv_layout!r}: 'slots' or 'paged'")
         self.slots = [_Slot(i) for i in range(n_slots)]
@@ -208,7 +224,8 @@ class Engine:
     def _loop(self) -> None:
         while not self._stop.is_set():
             try:
-                worked = self.step()
+                with self.step_lock:
+                    worked = self.step()
             except Exception as e:  # noqa: BLE001 — last-resort fence: anything
                 # escaping step()'s per-operation fences (e.g. slot assignment)
                 # must not kill the worker thread and hang every queued request
@@ -636,6 +653,18 @@ class Engine:
             slot.state = SlotState.FREE
             slot.req = None
             req.done.set()
+
+    def erase_slot(self, idx: int) -> None:
+        """Forget a free slot's cached rows (server /slots/{id}?action=erase);
+        a paged slot gives its pages back."""
+        slot = self.slots[idx]
+        if slot.req is not None:
+            raise ValueError(f"slot {idx} is busy")
+        slot.n_past = 0
+        slot.cache_tokens = []
+        if self.kv_layout == "paged":
+            self._seqs[idx].release()
+            self.cache.set_table_row(idx, self._seqs[idx].table_row(self.cache.n_pages))
 
     @property
     def n_busy_slots(self) -> int:

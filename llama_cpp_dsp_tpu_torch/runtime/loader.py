@@ -4,7 +4,10 @@ Counterpart of the JAX package's runtime/loader.py (`load_model`,
 `_split_fused`, `LoadedModel`) for the llama and deepseek2 architectures.
 Tensors are repacked into QTensors on the CPU; LlamaContext moves them to
 its device. An MLA model's attn_kv_b is split into bf16 W_uk / W_uv here,
-once (`models/deepseek2.py::split_kv_b`).
+once (`models/deepseek2.py::split_kv_b`). A tensor that the JAX loader maps
+and the port cannot run yet (a bias, an extra norm or scale, another
+family's rows) refuses the file, naming its ROADMAP.md row: running without
+it would change the model's output.
 
 `params_from_numpy` carries the JAX loader's parameter tree (numpy arrays
 and JAX QTensors, read by duck typing: `.kind`, `.shape`, `.arrays`) over to
@@ -53,6 +56,8 @@ _LAYER_TENSORS = {
     "ffn_gate_shexp.weight": "ffn_gate_shexp",
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
+    # DeepSeek-V3-style selection bias (sigmoid routers)
+    "exp_probs_b.bias": "ffn_exp_probs_b",
     # DeepSeek-V2 MLA (the reference's LLM_ARCH_DEEPSEEK2 tensor table)
     "attn_q_a.weight": "attn_q_a",
     "attn_q_a_norm.weight": "attn_q_a_norm",
@@ -68,6 +73,51 @@ _GLOBAL_TENSORS = {
     "output.weight": "output",
     "rope_freqs.weight": "rope_freqs",
 }
+
+# tensors the JAX loader maps (its runtime/loader.py _LAYER_TENSORS and
+# _GLOBAL_TENSORS) and the port does not run yet → the ROADMAP.md row that
+# brings them: A3 the biases, norms, scales and arctic rows of other
+# decoder archs, A8 the other model families (SSM, RWKV, BERT)
+_A3_LAYER = (
+    "attn_norm.bias", "attn_norm_2.weight", "attn_norm_2.bias", "attn_output.bias",
+    "attn_q.bias", "attn_k.bias", "attn_v.bias", "attn_qkv.bias", "attn_q_norm.weight",
+    "attn_k_norm.weight", "attn_q_norm.bias", "attn_k_norm.bias", "attn_post_norm.weight",
+    "post_attention_norm.weight", "attn_sub_norm.weight", "ffn_sub_norm.weight",
+    "attn_q.scale", "attn_k.scale", "attn_v.scale", "attn_output.scale", "ffn_gate.scale",
+    "ffn_up.scale", "ffn_down.scale", "ffn_norm.bias", "ffn_post_norm.weight",
+    "post_ffw_norm.weight", "ffn_gate.bias", "ffn_up.bias", "ffn_down.bias",
+    "ffn_norm_exps.weight",
+)
+_A8_LAYER = (
+    "ssm_in.weight", "ssm_conv1d.weight", "ssm_conv1d.bias", "ssm_x.weight", "ssm_dt.weight",
+    "ssm_dt.bias", "ssm_a", "ssm_d", "ssm_out.weight",
+    *(f"time_mix_{n}.weight" for n in (
+        "w1", "w2", "lerp_x", "lerp_w", "lerp_k", "lerp_v", "lerp_r", "lerp_g", "first",
+        "decay", "decay_w1", "decay_w2", "key", "value", "receptance", "gate", "ln", "output",
+        "w0", "a0", "a1", "a2", "v0", "v1", "v2", "g1", "g2", "k_k", "k_a", "r_k",
+        "lerp_fused")),
+    "time_mix_key.bias", "time_mix_value.bias", "time_mix_receptance.bias",
+    "time_mix_ln.bias",
+    *(f"channel_mix_{n}.weight" for n in ("lerp_k", "lerp_r", "key", "value", "receptance")),
+    "attn_output_norm.weight", "attn_output_norm.bias", "layer_output_norm.weight",
+    "layer_output_norm.bias",
+)
+_UNPORTED_LAYER = {**{t: "A3" for t in _A3_LAYER}, **{t: "A8" for t in _A8_LAYER}}
+_UNPORTED_GLOBAL = {
+    "token_embd_norm.weight": "A3", "token_embd_norm.bias": "A3", "output_norm.bias": "A3",
+    "output.bias": "A3", "rope_factors_long.weight": "A3", "position_embd.weight": "A8",
+    "token_types.weight": "A8", "cls.weight": "A8", "cls.bias": "A8",
+    "cls.output.weight": "A8", "cls.output.bias": "A8",
+}
+
+
+def _refuse_unported(name: str) -> None:
+    """Raise for a tensor the JAX loader maps and the port cannot run yet."""
+    rest = name.split(".", 2)[2] if name.startswith("blk.") else None
+    row = _UNPORTED_LAYER.get(rest) if rest else _UNPORTED_GLOBAL.get(name)
+    if row:
+        raise NotImplementedError(
+            f"tensor {name}: the port does not run it yet (ROADMAP.md queue A, {row})")
 
 
 @dataclass
@@ -158,6 +208,7 @@ def load_model(path: str) -> LoadedModel:
     spec = arch_spec(cfg.arch)
     params: dict[str, Any] = {"layers": [{} for _ in range(cfg.n_layers)]}
     for name, info in gm.tensors.items():
+        _refuse_unported(name)
         if name in _GLOBAL_TENSORS:
             params[_GLOBAL_TENSORS[name]] = from_gguf_tensor(
                 info.data, info.ggml_type, info.np_shape)

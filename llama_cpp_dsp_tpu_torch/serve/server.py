@@ -7,16 +7,18 @@ Endpoints, with the JAX server's JSON fields and SSE framing
 (`data: {...}\\n\\n` … `data: [DONE]\\n\\n`): GET /health, /v1/health, /props,
 /models, /v1/models, /slots, /metrics; POST /tokenize, /detokenize,
 /completion, /completions, /v1/completions, /chat/completions,
-/v1/chat/completions; Bearer-key auth on the completion endpoints. Requests
+/v1/chat/completions, /slots/{id}?action=save|restore|erase (save and
+restore need --slot-save-path; runtime/state_io.py); Bearer-key auth on the
+completion and slot endpoints. Requests
 queue into the Engine, whose thread drives the batched decode loop; each
 HTTP connection is served on a thread of its own.
 
 A request field the port cannot honour (grammar, JSON schema, logit bias,
 logprobs, tools, a non-default penalty, DRY, XTC, typical, mirostat,
 dynatemp or top-n-sigma value) is refused with HTTP 400 naming its ROADMAP.md
-row. The JAX server's other endpoints (embeddings, rerank, infill, slot
-save/restore, LoRA adapters, POST /props, /apply-template, /api/show)
-answer 404 and are queued in ROADMAP.md queue A4.
+row. The JAX server's other endpoints (embeddings, rerank, infill, LoRA
+adapters, POST /props, /apply-template, /api/show) answer 404 and are
+queued in ROADMAP.md queue A4.
 
 Run: python -m llama_cpp_dsp_tpu_torch.serve.server -m model.gguf --port 8080 -np 4
 """
@@ -26,14 +28,18 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import queue
 import sys
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..runtime.engine import Engine, Request
+from ..runtime.kv_cache import KV_PLANE_FORMATS
 from ..runtime.sampling import make_chain
+from ..runtime.state_io import load_slot, save_slot
 from .chat import apply_chat_template
 
 log = logging.getLogger("server")
@@ -134,11 +140,13 @@ def _sampler_from(body: dict, seed_default: int = 0):
 
 class Server:
     def __init__(self, engine: Engine, *, model_name: str = "model",
-                 api_key: str | None = None, chat_template: str | None = None):
+                 api_key: str | None = None, chat_template: str | None = None,
+                 slot_save_path: str | None = None):
         self.engine = engine
         self.model_name = model_name
         self.api_key = api_key
         self.chat_template = chat_template  # builtin name or jinja text
+        self.slot_save_path = slot_save_path  # directory of slot files
         self.t_start = time.time()
 
     @property
@@ -322,6 +330,43 @@ class Server:
                              "finish_reason": req.stop_reason}],
                 "usage": self._usage(req), "timings": timings}
 
+    def slot_action(self, slot_id: str, action: str, body: dict) -> tuple[int, dict]:
+        """Slot save / restore / erase (JAX serve/server.py::slot_action,
+        reference server.cpp): save and restore need --slot-save-path (501
+        without it) and keep only the file name's basename, joined under that
+        directory; a bad slot id is a 400. Runs between engine steps. A save
+        records the tokens the slot's rows hold, so a restored slot serves a
+        prompt that starts with them as a cached prefix."""
+        eng = self.engine
+        if action in ("save", "restore"):
+            if not self.slot_save_path:
+                return 501, _error("start the server with --slot-save-path to enable slot "
+                                   "save/restore", "not_supported_error")
+            raw = body.get("filename", f"slot_{slot_id}.bin")
+            filename = os.path.join(self.slot_save_path, os.path.basename(str(raw)))
+        try:
+            idx = int(slot_id)
+        except ValueError:
+            idx = -1
+        if not 0 <= idx < eng.n_slots:
+            return 400, _error("bad slot", "invalid_request_error")
+        slot = eng.slots[idx]
+        try:
+            with eng.step_lock:
+                if action == "save":
+                    save_slot(eng, idx, filename, slot.cache_tokens[:slot.n_past])
+                    return 200, {"id_slot": idx, "filename": filename, "n_saved": slot.n_past}
+                if action == "restore":
+                    load_slot(eng, idx, filename)
+                    return 200, {"id_slot": idx, "filename": filename,
+                                 "n_restored": slot.n_past}
+                if action == "erase":
+                    eng.erase_slot(idx)
+                    return 200, {"id_slot": idx, "n_erased": 1}
+        except (OSError, ValueError) as e:
+            return 400, _error(str(e), "invalid_request_error")
+        return 400, _error("unknown action", "invalid_request_error")
+
     def make_httpd(self, host: str, port: int) -> ThreadingHTTPServer:
         """The HTTP server bound to (host, port); port 0 takes a free one
         (read it from `.server_address`). Run it with serve_forever()."""
@@ -382,7 +427,7 @@ def _make_handler(srv: Server):
                 self._not_found(path)
 
         def _not_found(self, path: str) -> None:
-            if path in _LEFT_OUT or path.startswith("/slots/"):
+            if path in _LEFT_OUT:
                 msg = f"{path} is not ported to the PyTorch port (ROADMAP.md queue A4)"
             else:
                 msg = f"no endpoint {path}"
@@ -395,17 +440,25 @@ def _make_handler(srv: Server):
                 raise json.JSONDecodeError("body is not a JSON object", "", 0)
             return body
 
+        def _authorized(self) -> bool:
+            if srv.api_key and self.headers.get("Authorization", "") != f"Bearer {srv.api_key}":
+                self._json(401, _error("invalid api key", "authentication_error"))
+                return False
+            return True
+
         def _post(self) -> None:
-            path = self.path.split("?")[0]
-            if path == "/tokenize":
+            path, _, query = self.path.partition("?")
+            if path.startswith("/slots/"):
+                if self._authorized():
+                    action = urllib.parse.parse_qs(query).get("action", [""])[0]
+                    self._json(*srv.slot_action(path[len("/slots/"):], action, self._body()))
+            elif path == "/tokenize":
                 self._json(200, srv.tokenize(self._body()))
             elif path == "/detokenize":
                 self._json(200, srv.detokenize(self._body()))
             elif path in ("/completion", "/completions", "/v1/completions",
                           "/chat/completions", "/v1/chat/completions"):
-                if srv.api_key and self.headers.get("Authorization", "") != (
-                        f"Bearer {srv.api_key}"):
-                    self._json(401, _error("invalid api key", "authentication_error"))
+                if not self._authorized():
                     return
                 body = self._body()
                 chat = path.endswith("chat/completions")
@@ -473,10 +526,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-layout", default="slots", choices=("slots", "paged"),
                     help="paged = shared-prefix page-aliased KV cache")
     ap.add_argument("--kv-page-size", type=int, default=128)
-    ap.add_argument("-ctk", "--cache-type-k", default="bf16",
-                    choices=("f32", "bf16", "f16", "q8_0", "q4_0", "q4_1", "q5_0", "q5_1",
-                             "iq4_nl"),
-                    help="K and V cache type (the port has bf16 and q8_0)")
+    ap.add_argument("-ctk", "--cache-type-k", default="bf16", choices=KV_PLANE_FORMATS,
+                    help="K cache data type (reference --cache-type-k)")
+    ap.add_argument("-ctv", "--cache-type-v", default=None, choices=KV_PLANE_FORMATS,
+                    help="V cache data type (reference --cache-type-v; defaults to -ctk)")
+    ap.add_argument("--slot-save-path", default=None,
+                    help="directory for slot save/restore files (required to enable "
+                         "/slots/{id}?action=save|restore)")
     ap.add_argument("--chat-template", default=None,
                     help="builtin template name (chatml, llama3, ...) or jinja text "
                          "overriding the model's template")
@@ -496,10 +552,10 @@ def build(args: argparse.Namespace, model=None):
         model = load_model(args.model)
     engine = Engine(model, n_slots=args.parallel, n_ctx_per_slot=args.ctx_size,
                     kv_layout=args.kv_layout, page_size=args.kv_page_size,
-                    kv_dtype=args.cache_type_k, decode_chunk=args.decode_chunk,
-                    device=args.device)
+                    kv_dtype=args.cache_type_k, kv_v_dtype=args.cache_type_v,
+                    decode_chunk=args.decode_chunk, device=args.device)
     server = Server(engine, model_name=args.alias or args.model, api_key=args.api_key,
-                    chat_template=args.chat_template)
+                    chat_template=args.chat_template, slot_save_path=args.slot_save_path)
     return engine, server, server.make_httpd(args.host, args.port)
 
 

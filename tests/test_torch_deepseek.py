@@ -209,10 +209,11 @@ def test_engine_two_slots_match_b1_forwards(ds_gguf):
     """Two requests decoding together in the engine (per-slot prefill, then
     batched decode steps over B10's and B9's plain versions) give the
     greedy streams of B=1 forwards over contiguous caches, each prompt
-    prefilled as the engine pads it."""
+    prefilled as the engine pads it; with -ctk q8_0 the latent rows are
+    quantized and attention takes the einsum path, as in JAX."""
     from llama_cpp_dsp_tpu_torch.models.llama import forward
     from llama_cpp_dsp_tpu_torch.runtime.engine import Engine, Request
-    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import make_kv_cache
     from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 
     model = load_model(ds_gguf)
@@ -225,8 +226,8 @@ def test_engine_two_slots_match_b1_forwards(ds_gguf):
     while not all(r.done.is_set() for r in reqs):
         eng.step()
 
-    def b1(prompt):
-        cache = KVCache.create(cfg.n_layers, 1, 64, cfg.kv_cache_heads, cfg.kv_cache_dim)
+    def b1(prompt, kv="bf16"):
+        cache = make_kv_cache(cfg.n_layers, 1, 64, cfg.kv_cache_heads, cfg.kv_cache_dim, kv)
         n, t = len(prompt), 8  # the engine's bucket: padding at position n_past (0)
         toks = torch.zeros(1, t, dtype=torch.long)
         toks[0, :n] = torch.tensor(prompt)
@@ -243,8 +244,10 @@ def test_engine_two_slots_match_b1_forwards(ds_gguf):
         assert r.error is None and r.result_tokens == b1(p)
     with pytest.raises(ValueError, match="paged"):
         Engine(model, n_slots=2, n_ctx_per_slot=64, kv_layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A5"):
-        Engine(model, n_slots=2, n_ctx_per_slot=64, kv_dtype="q8_0", device="cpu")
+    eng = Engine(model, n_slots=2, n_ctx_per_slot=64, prefill_buckets=(8, 32), kv_dtype="q8_0",
+                 device="cpu")
+    req = eng.generate_sync(prompts[0], max_new_tokens=6, sampler=make_chain(temp=0))
+    assert req.error is None and req.result_tokens == b1(prompts[0], "q8_0")
 
 
 def test_forward_packed_refuses_mla(ds_gguf):
@@ -276,3 +279,55 @@ def test_yarn_scale_handling_follows_jax(ds_gguf):
     cos, sin = _rope_angles(torch.tensor([5.0]), rp, None)
     mscale = 1.0 + 0.1 * math.log(1.0 / rp.freq_scale)  # 1.3689 at factor 40
     torch.testing.assert_close(cos * cos + sin * sin, torch.full_like(cos, mscale ** 2))
+
+
+def test_selection_bias_loads_and_steers_like_jax(tmp_path, monkeypatch):
+    """A DeepSeek-V3-style deepseek2 GGUF: sigmoid routers (gating func 2)
+    and a selection bias `blk.N.exp_probs_b.bias`. Both packages' loaders
+    map the bias to `ffn_exp_probs_b`; an MoE layer given the same input
+    selects the same experts (its output agrees with JAX's, and moves when
+    the bias is dropped); the model's logits agree with JAX's."""
+    import jax
+    import jax.numpy as jnp
+
+    from llama_cpp_dsp_tpu.models.llama import ffn_moe as jax_ffn_moe
+    from llama_cpp_dsp_tpu.runtime.loader import load_model as jax_load_model
+    from llama_cpp_dsp_tpu_torch.models.llama import ffn_moe
+    from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+
+    rng = np.random.default_rng(8)
+
+    class Writer(synth.GGUFWriter):
+        def add_tensor(self, name, data, **kw):
+            super().add_tensor(name, data, **kw)
+            if name.endswith("ffn_gate_inp.weight"):
+                super().add_tensor(name.replace("ffn_gate_inp.weight", "exp_probs_b.bias"),
+                                   (rng.standard_normal(TINY.n_expert) * 0.5).astype(np.float32))
+
+    monkeypatch.setattr(synth, "GGUFWriter", Writer)
+    path = str(tmp_path / "tiny-ds-v3.gguf")
+    synth.write_synth_gguf(path, dataclasses.replace(TINY, expert_gating="sigmoid"), "Q4_K_M",
+                           seed=3, vocab="deepseek-llm", experts=TINY_EXPERTS)
+    pm, jm = load_model(path), jax_load_model(path)
+    assert pm.cfg.expert_gating == jm.cfg.expert_gating == "sigmoid"
+    for i in (1, 2):
+        np.testing.assert_array_equal(pm.params["layers"][i]["ffn_exp_probs_b"].numpy(),
+                                      np.asarray(jm.params["layers"][i]["ffn_exp_probs_b"]))
+    x = rng.standard_normal((1, 1, TINY.n_embd)).astype(np.float32)
+    want = np.asarray(jax.jit(jax_ffn_moe, static_argnums=(2, 3))(
+        jnp.asarray(x), jm.params["layers"][1], jm.cfg, jnp.bfloat16))
+    layer = pm.params["layers"][1]
+    got = ffn_moe(torch.from_numpy(x), layer, pm.cfg).float().numpy()
+    unbiased = {k: w for k, w in layer.items() if k != "ffn_exp_probs_b"}
+    moved = ffn_moe(torch.from_numpy(x), unbiased, pm.cfg).float().numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() / scale < 1e-2
+    assert np.abs(moved - want).max() / scale > 0.1
+    from llama_cpp_dsp_tpu.runtime.context import LlamaContext as JaxContext
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+
+    ctx = LlamaContext(pm, n_ctx=64, device="cpu")
+    jctx = JaxContext(jm, n_ctx=64, use_pallas=False)
+    for toks in ([1792, 300, 40, 7, 9], [11]):  # a prefill, then a decode step
+        got, want = ctx.eval_tokens(toks), np.asarray(jctx.eval_tokens(toks))
+        assert np.abs(got - want).max() / np.abs(want).max() < LOGIT_RTOL

@@ -3,8 +3,9 @@ the CPU.
 
 A tiny head_dim-128 Q4_0 llama (build_tiny_llama n_embd=256, 2/2 heads) puts
 the kernels' plain versions on the path: the fused decode attention for the
-bf16 slots, flash_decode_q8 for -ctk q8_0, and the paged decode attention
-for kv_layout="paged". The JAX side runs its XLA path (use_pallas=False,
+bf16 slots, flash_decode_q8 for -ctk q8_0, flash_decode_q4 for -ctk q4_0,
+the paged decode attention for kv_layout="paged" (flash_decode over the
+dequantized pages for Q4_0 pages, as JAX). The JAX side runs its XLA path (use_pallas=False,
 decode_chunk=1). Greedy streams must be byte-identical.
 """
 
@@ -30,6 +31,8 @@ CONFIGS = {
     "slots-q8_0": {"kv_dtype": "q8_0"},
     "paged-bf16": {"kv_layout": "paged", "page_size": 16},
     "paged-q8_0": {"kv_layout": "paged", "kv_dtype": "q8_0", "page_size": 16},
+    "slots-q4_0": {"kv_dtype": "q4_0"},
+    "paged-q4_0": {"kv_layout": "paged", "kv_dtype": "q4_0", "page_size": 16},
 }
 P1 = [1, 3, 5, 7, 9, 11, 13, 2, 4]
 P2 = [1, 6, 10, 14, 8]
@@ -79,7 +82,7 @@ def port_streams(model):
     return {name: _port_script(model, **kw) for name, kw in CONFIGS.items()}
 
 
-@pytest.mark.parametrize("name", ["slots-bf16", "paged-q8_0"])
+@pytest.mark.parametrize("name", ["slots-bf16", "paged-q8_0", "slots-q4_0", "paged-q4_0"])
 def test_engine_matches_jax(gguf, port_streams, name):
     jax_engine = JaxEngine(jax_load_model(gguf), use_pallas=False, decode_chunk=1,
                            context_shift=False, **ENGINE_KW, **CONFIGS[name])

@@ -115,6 +115,37 @@ def test_port_imports_with_jax_blocked():
             y = decode_layer(torch.ones(1, hi - lo, 256), ds_layer, ds, pos, cache, 0, lo,
                              True, {})
             assert y.isfinite().all()
+        # the KV cache types, B8's plain version and a bf16 state file
+        # (written and read without ml_dtypes)
+        import tempfile
+        from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode_q4
+        from llama_cpp_dsp_tpu_torch.runtime import state_io
+        from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+        from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KV_PLANE_FORMATS, make_kv_cache
+        from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQ4KVCache
+        for fmt in KV_PLANE_FORMATS:
+            kv = make_kv_cache(1, 2, 8, 2, 128, fmt, v_type="q4_0")
+            kv.write(0, torch.ones(2, 3, 2, 128), torch.ones(2, 3, 2, 128), 1)
+            assert kv.layer(0)[0].float().isfinite().all()
+        q4 = make_kv_cache(1, 2, 8, 2, 128, "q4_0")
+        assert flash_decode_q4(torch.ones(2, 4, 128), *q4.packed_layer(0),
+                               torch.tensor([3, 8]), scale=0.1).shape == (2, 4, 128)
+        PagedQ4KVCache.create(1, 4, 2, 2, 2, 128, page_size=16)
+        from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+        from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+        from llama_cpp_dsp_tpu_torch.tools.synth import write_synth_gguf
+        path = tempfile.mkdtemp() + "/m.gguf"
+        write_synth_gguf(path, LlamaConfig(arch="llama", n_layers=1, n_embd=64, n_heads=2,
+                                           n_kv_heads=2, head_dim=32, n_ff=128, n_vocab=300,
+                                           n_ctx_train=64, rope=RopeParams(n_dims=32)), "Q8_0")
+        tiny = load_model(path)
+        ctx = LlamaContext(tiny, n_ctx=16, device="cpu")
+        ctx.eval_tokens([1, 2, 3])
+        path += ".npz"
+        state_io.save_state(ctx, path, [1, 2, 3])
+        other = LlamaContext(tiny, n_ctx=16, device="cpu")
+        assert state_io.load_state(other, path) == [1, 2, 3]
+        assert torch.equal(other.cache.k[0][:, :, :3], ctx.cache.k[0][:, :, :3])
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)

@@ -235,3 +235,41 @@ def test_synth_llama_bpe_q4_k_m_cli_matches_jax(tmp_path, monkeypatch):
     rc_t, out_t, _ = _run_cli(main, args)
     assert rc_j == rc_t == 0
     assert out_t == out_j and out_t.startswith(b"Hello, world!")
+
+
+def test_loader_refuses_unported_tensors(tmp_path, monkeypatch):
+    """A tensor that the JAX loader maps and the port cannot run yet (a
+    bias, norm or scale of another decoder arch: ROADMAP row A3; another
+    family's: A8) refuses the file, naming the tensor and the row; the
+    port's table and its refusals together cover the JAX loader's."""
+    from llama_cpp_dsp_tpu.runtime import loader as jax_loader
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.runtime import loader as port_loader
+    from llama_cpp_dsp_tpu_torch.tools import synth
+
+    assert set(jax_loader._LAYER_TENSORS) == (set(port_loader._LAYER_TENSORS)
+                                              | set(port_loader._UNPORTED_LAYER))
+    assert set(jax_loader._GLOBAL_TENSORS) == (set(port_loader._GLOBAL_TENSORS)
+                                               | set(port_loader._UNPORTED_GLOBAL))
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=64, n_heads=2, n_kv_heads=2,
+                      head_dim=32, n_ff=128, n_vocab=300, n_ctx_train=64,
+                      rope=RopeParams(n_dims=32))
+    base = synth.GGUFWriter
+    for extra, after, row in (("blk.0.attn_q.bias", "blk.0.attn_norm.weight", "A3"),
+                              ("blk.1.ffn_down.bias", "blk.1.attn_norm.weight", "A3"),
+                              ("output.bias", "output_norm.weight", "A3"),
+                              ("blk.1.ssm_a", "blk.1.attn_norm.weight", "A8")):
+        class Writer(base):
+            def add_tensor(self, name, data, extra=extra, after=after, **kw):
+                super().add_tensor(name, data, **kw)
+                if name == after:
+                    super().add_tensor(extra, np.full(64, 0.5, np.float32))
+
+        monkeypatch.setattr(synth, "GGUFWriter", Writer)
+        path = str(tmp_path / f"{extra}.gguf")
+        synth.write_synth_gguf(path, cfg, "Q8_0")
+        with pytest.raises(NotImplementedError,
+                           match=rf"tensor {re.escape(extra)}: .*ROADMAP.md queue A, {row}\)"):
+            load_model(path)
+        assert jax_load_model(path).cfg.n_layers == 2  # JAX maps it

@@ -2,11 +2,13 @@
 (plain versions, CPU) against the JAX package's runtime/paged_kv.py and its
 Pallas flash_decode_paged / flash_decode_paged_q8 in interpret mode.
 
-Cache writes, gathers, tables and refcounts must be identical; attention
+Cache writes (bf16, f16, f32, Q8_0 and Q4_0 pools), gathers, one
+sequence's gather and scatter, tables and refcounts must be identical; attention
 agrees within atol/rtol 1e-5 (f32 math in both, sums in another order), as
 tests/test_paged_kv.py holds the JAX kernels to their dense twins.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (
     flash_decode_paged, flash_decode_paged_q8)
 from llama_cpp_dsp_tpu_torch.runtime.paged_kv import (
-    PageAllocator, PagedKVCache, PagedQuantKVCache, PagedSeq)
+    PageAllocator, PagedKVCache, PagedQ4KVCache, PagedQuantKVCache, PagedSeq)
 
 L, HKV, PS, D = 2, 2, 8, 32
 N_PAGES, N_SEQS, MAX_BLOCKS = 16, 3, 4
@@ -209,3 +211,65 @@ def test_paged_q8_matches_dense_q8_in_the_port():
         for a, b in zip(port.layer(layer), dense.layer(layer)):
             for s, n in enumerate(lens):
                 assert torch.equal(a[s, :, :n], b[s, :, :n])
+
+
+def _op_by_op(fn, *args):
+    """fn(*args) compiled by XLA without its algebraic simplifier, which would
+    turn a Q8_0 scale's division by 127 into a multiplication by 1/127: JAX's
+    op-by-op results in one program (compiling each op alone costs more)."""
+    return jax.jit(fn).lower(*args).compile({"xla_disable_hlo_passes": "algsimp"})(*args)
+
+
+def _pools(cache) -> list:
+    groups = ([cache.k_qs, cache.k_d, cache.v_qs, cache.v_d] if hasattr(cache, "k_qs")
+              else [cache.k, cache.v])
+    return [_np(a) for g in groups for a in g]
+
+
+@pytest.mark.parametrize("kind", ["f16", "q8_0", "q4_0"])
+def test_pools_writes_and_seq_surgery_match_jax(kind):
+    """Every pool of the f16, Q8_0 and Q4_0 paged caches is bit-equal to
+    JAX's after a scalar write, a per-slot write (slot 1 idle) and a packed
+    step (both rows of a Q4_0 byte on one page, a row of an unmapped block,
+    padding); then scatter_seq into one sequence and gather_seq of each
+    agree with JAX's."""
+    rng = np.random.default_rng(12)
+    n_pages, nb, ps, d = 7, 3, 4, 64
+    args = (1, n_pages, 3, nb, HKV, d)
+    if kind == "f16":
+        port = PagedKVCache.create(*args, page_size=ps, dtype=torch.float16)
+        theirs = jpk.PagedKVCache.create(*args, page_size=ps, dtype=jnp.float16)
+    else:
+        port = (PagedQuantKVCache if kind == "q8_0" else PagedQ4KVCache).create(*args,
+                                                                                page_size=ps)
+        theirs = (jpk.PagedQuantKVCache if kind == "q8_0" else jpk.PagedQ4KVCache).create(
+            *args, page_size=ps)
+    for s, row in enumerate(([2, 0, 7], [5, 1, 3], [4, 6, 7])):  # 7: unmapped
+        port.set_table_row(s, np.array(row, np.int32))
+        theirs = theirs.set_table_row(s, np.array(row, np.int32))
+    writes = (  # (k rows, v rows, offset), then a packed step's (k, v, slots, rows)
+        (rng.standard_normal((3, 5, HKV, d)).astype(np.float32), None, 1),
+        (rng.standard_normal((3, 1, HKV, d)).astype(np.float32), None,
+         np.array([6, nb * ps, 7], np.int32)))
+    for k, _, off in writes:
+        port.write(0, _t(k), _t(-k), _t(off) if isinstance(off, np.ndarray) else off)
+        theirs = _op_by_op(lambda c, k, v, o: c.write(0, k, v, o), theirs, jnp.asarray(k),
+                           jnp.asarray(-k), jnp.asarray(off))
+    k = rng.standard_normal((6, HKV, d)).astype(np.float32)
+    sid, rows = np.array([0, 0, 2, 1, 1, 0], np.int32), np.array([6, 7, 8, 9, nb * ps, 2],
+                                                                   np.int32)
+    port.write_packed(0, _t(k), _t(k + 1), _t(sid), _t(rows))
+    theirs = _op_by_op(lambda c, k, v, s, r: c.write_packed(0, k, v, s, r), theirs,
+                       jnp.asarray(k), jnp.asarray(k + 1), jnp.asarray(sid), jnp.asarray(rows))
+    for a, b in zip(_pools(port), _pools(theirs), strict=True):
+        np.testing.assert_array_equal(a, b)
+    k = rng.standard_normal((1, 1, HKV, 2 * ps, d)).astype(np.float32)
+    port.scatter_seq(1, _t(k), _t(k / 2))
+    theirs = _op_by_op(lambda c, k, v: c.scatter_seq(1, k, v), theirs, jnp.asarray(k),
+                       jnp.asarray(k / 2))
+    for a, b in zip(_pools(port), _pools(theirs), strict=True):
+        np.testing.assert_array_equal(a, b)
+    gathered = _op_by_op(lambda c: [c.gather_seq(s) for s in range(3)], theirs)
+    for seq, want in enumerate(gathered):
+        for a, b in zip(port.gather_seq(seq), want, strict=True):
+            np.testing.assert_array_equal(_np(a), _np(b))

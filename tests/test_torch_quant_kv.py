@@ -17,8 +17,8 @@ from llama_cpp_dsp_tpu.ops.pallas.attention import flash_decode_q8 as jax_flash_
 from llama_cpp_dsp_tpu.runtime import kv_cache as jkv
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode_q8
-from llama_cpp_dsp_tpu_torch.runtime.kv_cache import (
-    KVCache, QuantKVCache, _q8_dequant, _q8_quant, make_kv_cache)
+from llama_cpp_dsp_tpu_torch.quant.kv_planes import q8_dequant, q8_quant
+from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache, QuantKVCache, make_kv_cache
 
 L, B, HKV, S, D = 2, 3, 2, 16, 32
 
@@ -51,13 +51,13 @@ def test_q8_quant_bit_exact_with_jax():
     # exact halves after scaling exercise round-half-to-even
     x[1, 1, 1, :4] = np.array([127.0, 0.5, 1.5, -2.5], np.float32)
     for dt_t, dt_j in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
-        qs, d = _q8_quant(torch.from_numpy(x).to(dt_t))
+        qs, d = q8_quant(torch.from_numpy(x).to(dt_t))
         jqs, jd = jkv._q8_quant(jnp.asarray(x, dt_j))
         assert qs.dtype == torch.int8 and d.dtype == torch.float32
         np.testing.assert_array_equal(qs.numpy(), np.asarray(jqs))
         np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
         np.testing.assert_array_equal(
-            _q8_dequant(qs, d, torch.float32).numpy(),
+            q8_dequant(qs, d, torch.float32).numpy(),
             np.asarray(jkv._q8_dequant(jqs, jd, jnp.float32)))
 
 
@@ -112,8 +112,17 @@ def test_slot_view_writes_through():
 
 
 def test_other_kv_types_raise():
-    with pytest.raises(NotImplementedError, match="queue A5"):
-        make_kv_cache(L, B, S, HKV, D, "q4_0")
+    """A type outside the reference's -ctk / -ctv set is refused, as JAX's
+    make_kv_cache refuses it (every type of the set is accepted: see
+    tests/test_torch_mixed_kv.py)."""
+    with pytest.raises(ValueError, match="unknown KV plane format 'q2_k'"):
+        make_kv_cache(L, B, S, HKV, D, "q2_k")
+    with pytest.raises(ValueError, match="unknown KV plane format 'q3_k'"):
+        make_kv_cache(L, B, S, HKV, D, "q8_0", v_type="q3_k")
+    with pytest.raises(KeyError):
+        jkv.make_kv_cache(L, B, S, HKV, D, "q2_k")
+    with pytest.raises(ValueError, match="unknown KV plane format 'q3_k'"):
+        jkv.make_kv_cache(L, B, S, HKV, D, "q8_0", v_type="q3_k")
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])

@@ -278,3 +278,47 @@ def test_llama3_chat_on_q4_k_m_bpe_model_matches_jax(tmp_path):
     assert got[1] == want[1]
     ch = got[1]["choices"][0]
     assert ch["finish_reason"] in ("stop", "length") and got[1]["usage"]["prompt_tokens"] > 12
+
+
+def test_slots_save_restore_erase(gguf, port_base, tmp_path):
+    """POST /slots/{id}?action=save|restore|erase (JAX serve/server.py
+    ::slot_action): 501 without --slot-save-path; a saved slot restores
+    into the other slot under the file name's basename; erase forgets a
+    slot's rows; a bad slot id is a 400, as is an unknown action; the key
+    is checked as for completions."""
+    status, _, text = _port_call(port_base, "POST", "/slots/0?action=save", {})
+    assert status == 501 and "--slot-save-path" in json.loads(text)["error"]["message"]
+    engine = Engine(load_model(gguf), device="cpu", kv_dtype="q4_0", **ENGINE_KW)
+    server = Server(engine, model_name="tiny", api_key="secret", slot_save_path=str(tmp_path))
+    httpd = server.make_httpd("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    engine.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status, _, _ = _port_call(base, "POST", "/completion",
+                                  {"prompt": "hello world", "n_predict": 6, "temperature": 0})
+        src = next(s for s in engine.slots if s.cache_tokens)
+        dst = engine.slots[1 - src.idx]
+        status, _, text = _port_call(base, "POST", f"/slots/{src.idx}?action=save",
+                                     {"filename": "../../saved.bin"})
+        assert status == 200 and json.loads(text) == {
+            "id_slot": src.idx, "filename": str(tmp_path / "saved.bin"), "n_saved": src.n_past}
+        status, _, text = _port_call(base, "POST", f"/slots/{dst.idx}?action=restore",
+                                     {"filename": "saved.bin"})
+        assert status == 200 and json.loads(text)["n_restored"] == src.n_past > 0
+        assert dst.cache_tokens == src.cache_tokens and dst.n_past == src.n_past
+        status, _, text = _port_call(base, "POST", f"/slots/{dst.idx}?action=erase", None)
+        assert status == 200 and json.loads(text) == {"id_slot": dst.idx, "n_erased": 1}
+        assert dst.cache_tokens == [] and dst.n_past == 0
+        for path, want in (("/slots/7?action=erase", "bad slot"),
+                           ("/slots/x?action=save", "bad slot"),
+                           ("/slots/0?action=nope", "unknown action"),
+                           ("/slots/0?action=restore", "No such file")):
+            status, _, text = _port_call(base, "POST", path, None)
+            assert status == 400 and want in json.loads(text)["error"]["message"], path
+        status, _, _ = _port_call(base, "POST", "/slots/0?action=erase", None, headers={})
+        assert status == 401
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
