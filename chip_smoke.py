@@ -11,7 +11,9 @@ Phases:
            rows; Q4_0 decode at the 7B's and the 8B's heads and capacities
            512, 4096 and 770; qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
            Q4_K_M / Q5_K_M shapes; the Q4_1/Q5_0/Q5_1 kernels and MLA decode:
-           DeepSeek-V2-Lite's shapes too), with its stated tolerance and, where it
+           DeepSeek-V2-Lite's shapes too; qmm Q2_K/Q3_K: the Qwen2.5-7B and
+           Qwen3-8B shapes, their expert kernels at Qwen3-30B-A3B's; decode
+           attention at H 28 over Hkv 4 too), with its stated tolerance and, where it
            has one, a planted fault that the tolerance must catch; times of
            kernel, plain version and a PyTorch yardstick call.
   small    a 2-layer head_dim-128 Q4_0 model: logits and greedy stream on
@@ -61,6 +63,14 @@ Phases:
            vocab and chat template): the CLI, the launches of one decode
            step (27 MLA decodes, 78 selected-expert GEMVs), a profiled chunk
            and 512-token prefill, then a four-slot server burst.
+  small_qwen unit-size qwen2 (Q3_K_M, Q2_K), qwen3 (Q2_K), qwen2moe (Q2_K),
+           qwen3moe (Q3_K_M), mistral (Q4_0) and phi3 (Q3_K_M, fused GGUF
+           tensors) with the qwen2 vocab: a 34-token prefill and a 16-token
+           greedy stream on the card against the CPU.
+  qwen     full-width, full-depth Qwen2.5-7B-Instruct Q3_K_M (the CLI, then
+           the server over slots bf16 and paged q8_0 with chats through its
+           ChatML template) and Qwen3-8B Q2_K (the CLI): tokens/s, launches
+           of one decode step, bytes a token reads, a profiled chunk.
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -89,7 +99,7 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "small_kv", "llama3",
-          "kv8b", "q5km", "small_moe", "mixtral", "small_ds", "deepseek")
+          "kv8b", "q5km", "small_moe", "mixtral", "small_ds", "deepseek", "small_qwen", "qwen")
 
 
 def fail(msg: str) -> None:
@@ -149,6 +159,16 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[flo
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def gguf_nbytes(w) -> int:
+    """Bytes of a packed weight (or expert stack) in GGUF blocks: the least a
+    product with it must read. The port's repacked K-quant fields are larger
+    (per 256 weights Q2_K 104 B against 84, Q3_K 116 against 110, Q4_K 152
+    against 144), so bounds count these bytes, not `w.nbytes`."""
+    from llama_cpp_dsp_tpu_torch.gguf.constants import ggml_nbytes
+
+    return ggml_nbytes(w.kind, (max(w.n_expert, 1), *w.shape))
+
+
 def nmse(got, want) -> float:
     d = (got.double() - want.double())
     return float((d * d).mean() / ((want.double() ** 2).mean() + 1e-30))
@@ -203,13 +223,16 @@ QMM_NMSE_TOL = 5e-4
 
 def planted_qmm_fault(w):
     """The weight with a bug of one sub-block's size planted, or None for
-    Q4_0/Q8_0: Q4_K/Q5_K with group 3's dmin·mn term dropped in every
-    superblock, Q6_K with 16-group 5's scale zeroed, Q4_1 with its blocks'
-    m dropped, Q5_0/Q5_1 with their fifth bits dropped. The plain version on it
+    Q4_0/Q8_0: Q2_K/Q4_K/Q5_K with group 3's dmin·mn term dropped in every
+    superblock, Q3_K with its high bits (hmask) dropped, Q6_K with 16-group
+    5's scale zeroed, Q4_1 with its blocks' m dropped, Q5_0/Q5_1 with their
+    fifth bits dropped. The plain version on it
     must fail the NMSE limit, or the limit would not catch such a kernel."""
     from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
 
-    key, idx, label = {"Q4_K": ("mn", 3, "group 3's dmin*mn dropped"),
+    key, idx, label = {"Q2_K": ("mn", 3, "group 3's dmin*mn dropped"),
+                       "Q3_K": ("hmask", None, "every high bit dropped"),
+                       "Q4_K": ("mn", 3, "group 3's dmin*mn dropped"),
                        "Q5_K": ("mn", 3, "group 3's dmin*mn dropped"),
                        "Q6_K": ("sc", 5, "group 5's scale zeroed"),
                        "Q4_1": ("m", None, "every block's m dropped"),
@@ -283,7 +306,7 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
             t["ms"] += calls * ms
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
-            t["bytes"] += calls * (w.nbytes + x.numel() * 2 + n * 4)
+            t["bytes"] += calls * (gguf_nbytes(w) + x.numel() * 2 + n * 4)
             t["flops"] += calls * 2.0 * n * k
             del ws, dense
     rec = records[f"qmm_{kind_name}"]
@@ -321,6 +344,32 @@ DS_DECODE_CALLS = {"q5_0": {(2048, 1408): 14}, "q5_1": {(2048, 1408): 14},
 # gate/up Q4_K (Q4_K_M) or Q5_K (Q5_K_M), down Q8_0 in the 12 use_more_bits
 # MoE layers (Q6_K → Q8_0 at K = 1408); checked, timed at Mixtral's shapes
 DS_EXPERT_KQ_SHAPES = {"q4_k": [(1408, 2048)], "q5_k": [(1408, 2048)], "q8_0": [(2048, 1408)]}
+# Qwen2.5-7B Q3_K_M and Qwen3-8B Q2_K (GQA group 7 over K = 3584, and 32 /
+# 8 heads over K = 4096): q, k, gate / up and down of each, plus the row-
+# fused gate|up the decode path runs (q|k|v do not fuse: attn_v is another
+# kind). Calls per decode token: Q3_K on the Qwen2.5 Q3_K_M path (q, k,
+# gate|up in 28 layers), Q2_K on the Qwen3 Q2_K path (q, k, gate|up in 36);
+# Qwen3's Q3_K attn_output and ffn_down are checked, not timed
+QMM_SHAPES_QWEN = [(3584, 3584), (512, 3584), (18944, 3584), (3584, 18944), (4096, 4096),
+                   (12288, 4096), (4096, 12288)]
+DECODE_CALLS_QWEN = {"q3_k": {(3584, 3584): 28, (512, 3584): 28, (37888, 3584): 28},
+                     "q2_k": {(4096, 4096): 36, (1024, 4096): 36, (24576, 4096): 36}}
+# Qwen3-30B-A3B's expert stacks (Qwen/Qwen3-30B-A3B config.json: 48
+# layers, hidden 2048, 128 experts top-8 of width 768: gate/up [768, 2048],
+# down [2048, 768], K = 768 three superblocks); rows: one token top-1, a CLI
+# token (S = 8), four slots (S = 32). Calls per decode token of a Q2_K file
+# (gate/up Q2_K, down Q3_K in 48 layers)
+QWEN_EXPERT_SHAPES = [(768, 2048), (2048, 768)]
+QWEN_EXPERT_ROWS = (1, 8, 32)
+QWEN_DECODE_CALLS = {"q2_k": {(768, 2048): 96}, "q3_k": {(2048, 768): 48}}
+# the older K-quant kinds at the shapes the Qwen paths give them: Qwen2.5-7B
+# Q3_K_M's Q4_K attn_v, attn_output and ffn_down (K = 3584, 18944) and Q5_K
+# attn_v / ffn_down in its first layers, Qwen3-8B Q2_K's Q4_K attn_v, Q6_K
+# on both LM heads (vocab 152064 over K 3584, 151936 over 4096); checked,
+# timed at the 8B shapes
+QWEN_KQ_SHAPES = {"q4_k": [(512, 3584), (3584, 3584), (3584, 18944), (1024, 4096)],
+                  "q5_k": [(512, 3584), (3584, 18944)],
+                  "q6_k": [(152064, 3584), (151936, 4096)]}
 # the legacy qmm kinds: a DeepSeek expert-shaped matrix (K = 1408) and the
 # 7B shapes, timed at the 7B decode calls (a llama2-7B of that kind) to set
 # them beside qmm_q4_0; Q8_0 at layer 0's ffn_down (K = 10944)
@@ -407,7 +456,8 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
             t["ms"] += calls * ms
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
-            t["bytes"] += calls * (st * per_expert + x.numel() * 2 + 4 * st + st * n * 4)
+            t["bytes"] += calls * (st * gguf_nbytes(w) // n_expert + x.numel() * 2 + 4 * st
+                                   + st * n * 4)
             t["flops"] += calls * 2.0 * st * n * k
         del w
         torch.cuda.empty_cache()
@@ -424,6 +474,9 @@ FLASH_ATOL = 2e-3  # bf16 cache, f32 math in both; sums in another order
 # per slot: the kernel reads 1.7e-13 at most and a dropped row 8e-4 at least
 # (H100, this script's inputs), so the limit sits far from both
 FLASH_NMSE_TOL = 1e-8
+# (query heads, KV heads): the 7B's MHA, the 8B's GQA group 4, Qwen2.5-7B's
+# group 7 (28 over 4, the first group that is not a power of two)
+HEAD_CASES = ((32, 32), (32, 8), (28, 4))
 
 
 def check_flash_decode(records):
@@ -436,8 +489,8 @@ def check_flash_decode(records):
     b, h, d, s = 4, 32, 128, 512
     lengths = torch.tensor([512, 1, 300, 77], dtype=torch.int32, device="cuda")
     worst = worst_nmse = 0.0
-    for hkv in (32, 8):
-        q = torch.randn(b, h, d, generator=gen, device="cuda")
+    for hq, hkv in HEAD_CASES:
+        q = torch.randn(b, hq, d, generator=gen, device="cuda")
         k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
         for label, starts, cap in (("full", None, 0.0),
@@ -465,8 +518,8 @@ def check_flash_decode(records):
     for label, kdt, vdt in (("f16", torch.float16, torch.float16),
                             ("f32", torch.float32, torch.float32),
                             ("f32/bf16", torch.float32, torch.bfloat16)):
-        for hkv in (32, 8):
-            q = torch.randn(b, h, d, generator=gen, device="cuda")
+        for hq, hkv in HEAD_CASES:
+            q = torch.randn(b, hq, d, generator=gen, device="cuda")
             k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(kdt)
             v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(vdt)
             for case, starts, cap in (("full", None, 0.0),
@@ -636,8 +689,9 @@ def _dense_q8(k):
 
 def check_decode_variants(records):
     """flash_decode_q8, flash_decode_paged and flash_decode_paged_q8 against
-    their plain versions at D=128, H=32 over Hkv 32 and 8, B=4 ragged slots
-    of a 512-row context; per-slot NMSE with the planted faults."""
+    their plain versions at D=128 over HEAD_CASES (H 32 over Hkv 32 and 8,
+    H 28 over Hkv 4), B=4 ragged slots of a 512-row context; per-slot NMSE
+    with the planted faults."""
     import torch
     import torch.nn.functional as F
 
@@ -669,8 +723,8 @@ def check_decode_variants(records):
             w[1] = max(w[1], check_slots(f"{name} {label} {case}", got, want, faults,
                                          FLASH_NMSE_TOL))
 
-    for hkv in (32, 8):
-        q = torch.randn(b, h, d, generator=gen, device="cuda")
+    for hq, hkv in HEAD_CASES:
+        q = torch.randn(b, hq, d, generator=gen, device="cuda")
         k = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
         v = torch.randn(b, hkv, s, d, generator=gen, device="cuda")
         kq, kd = _dense_q8(k)
@@ -1666,6 +1720,45 @@ def phase_serve(records: dict, path: Path, model, configs=SERVE_CONFIGS, n_ctx: 
     print(f"  serve summary: {json.dumps(summary)}")
 
 
+def _cli_step(records: dict, path: Path, model, label: str, must: list[str], own: list[str]):
+    """A full-width model through the CLI (`-c 512 -p hello -n 32`) on the
+    loaded model, then, on a LlamaContext of it, the launches of one decode
+    step by kernel, a 32-token greedy stream and a profiled 8-step chunk
+    (three chunks: warm-up, timed, profiled) with its launches per token.
+    Fails unless the CLI launched every kernel of `must`; the launches of
+    `own` are this CLI's. Returns the context, the step's launches and the
+    CLI's."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"],
+                     model)
+    counts = dict(LAUNCHES)
+    require(counts, must, f"{label} CLI")
+    for k in own:
+        records[k]["launches"] = counts[k]
+    print(f"  {label} CLI: {decode_tps(err):.2f} tokens/s decode")
+    prompt = model.tokenizer.encode("hello")
+    ctx = LlamaContext(model, n_ctx=512)
+    first = int(ctx.eval_tokens(prompt).argmax())
+    reset_launches()
+    ctx.eval_tokens([first])
+    torch.cuda.synchronize()
+    step = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"  launches of one decode step: {step}")
+    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
+    print(f"  decode step at context {ctx.n_past}:")
+    reset_launches()
+    profile_chunk(ctx, stream[-1])
+    print(f"    port kernel launches per token: "
+          f"{ {k: v / 24 for k, v in LAUNCHES.items() if v} }")
+    return ctx, step, counts
+
+
 SERVE_CONFIGS_L3 = {  # name → (server flags, kernels its decode must launch)
     "slots bf16": ([], ["flash_decode", "qmm_q4_k", "qmm_q6_k"]),
     "paged q8_0": (["--kv-layout", "paged", "-ctk", "q8_0"],
@@ -1680,28 +1773,8 @@ def phase_llama3(records: dict, path: Path, model) -> None:
     paged q8_0) through the llama3 chat template."""
     import torch
 
-    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
-    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
-
-    reset_launches()
-    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"])
-    counts = dict(LAUNCHES)
-    require(counts, ["qmm_q4_k", "qmm_q6_k", "flash_decode"], "llama3 CLI")
-    for k in ("qmm_q4_k", "qmm_q6_k"):
-        records[k]["launches"] = counts[k]
-    print(f"  Llama-3-8B Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
-    prompt = model.tokenizer.encode("hello")
-    ctx = LlamaContext(model, n_ctx=512)
-    first = int(ctx.eval_tokens(prompt).argmax())
-    reset_launches()
-    ctx.eval_tokens([first])
-    torch.cuda.synchronize()
-    print(f"  launches of one decode step: "
-          f"{ {k: v for k, v in LAUNCHES.items() if v} }")
-    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
-    print(f"  decode step at context {ctx.n_past}:")
-    profile_chunk(ctx, stream[-1])
+    ctx, _, _ = _cli_step(records, path, model, "Llama-3-8B Q4_K_M",
+                          ["qmm_q4_k", "qmm_q6_k", "flash_decode"], ["qmm_q4_k", "qmm_q6_k"])
     # prefill at a llama-3 prompt length: one call of 512 tokens (tiled qmm,
     # the plain attention), to weigh B4 flash prefill
     long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 80)[:512]
@@ -1946,38 +2019,16 @@ def phase_mixtral(records: dict, path: Path, model) -> None:
     template, whose B=4 decode step runs the kernel (b·t·u = 8 ≤ 8)."""
     import torch
 
-    from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
-    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
     from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
 
-    reset_launches()
-    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"],
-                     model)
-    counts = dict(LAUNCHES)
-    require(counts, [*MIXTRAL_B9, "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "qmm_q8_0", "flash_decode"],
-            "mixtral CLI")
-    for k in MIXTRAL_B9:
-        records[k]["launches"] = counts[k]
-    print(f"  Mixtral-8x7B Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
-    prompt = model.tokenizer.encode("hello")
-    ctx = LlamaContext(model, n_ctx=512)
-    first = int(ctx.eval_tokens(prompt).argmax())
-    reset_launches()
-    ctx.eval_tokens([first])
-    torch.cuda.synchronize()
-    step = {k: v for k, v in LAUNCHES.items() if v}
+    ctx, step, _ = _cli_step(records, path, model, "Mixtral-8x7B Q4_K_M",
+                             [*MIXTRAL_B9, "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "qmm_q8_0",
+                              "flash_decode"], MIXTRAL_B9)
     n_b9 = sum(v for k, v in step.items() if k.startswith("qmm_experts_"))
-    print(f"  launches of one decode step: {step}; selected-expert GEMVs {n_b9}")
+    print(f"  selected-expert GEMVs of one decode step: {n_b9}")
     if n_b9 != 3 * model.cfg.n_layers:
         fail(f"one Mixtral decode step launched {n_b9} selected-expert GEMVs, "
              f"not {3 * model.cfg.n_layers}")
-    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
-    print(f"  decode step at context {ctx.n_past}:")
-    reset_launches()
-    profile_chunk(ctx, stream[-1])  # three 8-step chunks: warm-up, timed, profiled
-    print(f"    port kernel launches per token: "
-          f"{ {k: v / 24 for k, v in LAUNCHES.items() if v} }")
     long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 12)[:512]
 
     def prefill():
@@ -2056,39 +2107,19 @@ def phase_deepseek(records: dict, path: Path, model) -> None:
     import torch
 
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
-    from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
     from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
 
     cfg = model.cfg
     n_moe = sum("ffn_gate_exps" in layer for layer in model.params["layers"])
-    reset_launches()
-    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "32", "--temp", "0", "-c", "512"],
-                     model)
-    counts = dict(LAUNCHES)
-    require(counts, ["mla_decode", *DS_B9, "qmm_q4_k", "qmm_q6_k", "qmm_q8_0"], "deepseek CLI")
-    for k in ("mla_decode", "qmm_experts_q5_0"):
-        records[k]["launches"] = counts[k]
-    print(f"  DeepSeek-V2-Lite Q4_K_M CLI: {decode_tps(err):.2f} tokens/s decode")
-    prompt = model.tokenizer.encode("hello")
-    ctx = LlamaContext(model, n_ctx=512)
-    first = int(ctx.eval_tokens(prompt).argmax())
-    reset_launches()
-    ctx.eval_tokens([first])
-    torch.cuda.synchronize()
-    step = {k: v for k, v in LAUNCHES.items() if v}
+    ctx, step, _ = _cli_step(records, path, model, "DeepSeek-V2-Lite Q4_K_M",
+                             ["mla_decode", *DS_B9, "qmm_q4_k", "qmm_q6_k", "qmm_q8_0"],
+                             ["mla_decode", "qmm_experts_q5_0"])
     n_b9 = sum(v for k, v in step.items() if k.startswith("qmm_experts_"))
-    print(f"  launches of one decode step: {step}; B10 {step.get('mla_decode', 0)}, "
-          f"selected-expert GEMVs {n_b9} ({n_moe} MoE layers)")
+    print(f"  one decode step: B10 {step.get('mla_decode', 0)}, selected-expert GEMVs {n_b9} "
+          f"({n_moe} MoE layers)")
     if step.get("mla_decode", 0) != cfg.n_layers or n_b9 != 3 * n_moe:
         fail(f"one DeepSeek decode step launched B10 {step.get('mla_decode', 0)} times and B9 "
              f"{n_b9} times, not {cfg.n_layers} and {3 * n_moe}")
-    stream = list(ctx.generate(prompt, max_new_tokens=32, sampler=make_chain(temp=0)))
-    print(f"  decode step at context {ctx.n_past}:")
-    reset_launches()
-    profile_chunk(ctx, stream[-1])  # three 8-step chunks: warm-up, timed, profiled
-    print(f"    port kernel launches per token: "
-          f"{ {k: v / 24 for k, v in LAUNCHES.items() if v} }")
     long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 80)[:512]
 
     def prefill():
@@ -2111,6 +2142,117 @@ def phase_deepseek(records: dict, path: Path, model) -> None:
         fail("the DeepSeek-V2 template did not render through the deepseek2 family")
     phase_serve(records, path, model, SERVE_CONFIGS_DS, n_ctx=2048, system_repeat=16,
                 step_must=["mla_decode", *DS_B9])
+
+
+SMALL_QWEN = {  # (arch, ftype) → the kernels its path must launch
+    ("qwen2", "Q3_K_M"): ["qmm_q3_k", "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "flash_decode"],
+    ("qwen2", "Q2_K"): ["qmm_q2_k", "qmm_q3_k", "qmm_q6_k", "flash_decode"],
+    ("qwen3", "Q2_K"): ["qmm_q2_k", "qmm_q3_k", "qmm_q6_k", "flash_decode"],
+    ("qwen2moe", "Q2_K"): ["qmm_experts_q2_k", "qmm_experts_q3_k", "qmm_q2_k", "qmm_q3_k"],
+    ("qwen3moe", "Q3_K_M"): ["qmm_experts_q3_k", "qmm_experts_q4_k", "qmm_q3_k", "qmm_q4_k"],
+    ("mistral", "Q4_0"): ["qmm_q4_0", "attn_fused"],
+    ("phi3", "Q3_K_M"): ["qmm_q3_k", "qmm_q4_k", "qmm_q6_k", "flash_decode"],
+}
+SMALL_QWEN_PROMPT = "The quick brown fox jumps over the lazy dog, then rests a while.."
+
+
+def phase_small_qwen(records: dict) -> None:
+    """The Qwen family, mistral and phi3 as unit-size models
+    (`tools/synth.py::unit_config`: 2 layers, width 256, head_dim 128, the
+    qwen2 vocab; MoE 16 experts top-4) in the mixes of SMALL_QWEN, card
+    against CPU: a 34-token prompt (a 32-token chunk through the tiled
+    kernels, then two rows through the GEMVs; every expert over every row
+    in the MoE layers) and a 16-token greedy stream (the GEMVs and the
+    selected-expert kernel)."""
+    from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+    from llama_cpp_dsp_tpu_torch.tools.synth import UNIT_EXPERTS, unit_config, write_synth_gguf
+
+    for (arch, ftype), must in SMALL_QWEN.items():
+        path = ROOT / "build" / "smoke" / f"small-{arch}-{ftype.lower()}.gguf"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_synth_gguf(str(path), unit_config(arch), ftype, seed=5, vocab="qwen2",
+                         experts=UNIT_EXPERTS)
+        model = load_model(str(path))
+        n_prompt = len(model.tokenizer.encode(SMALL_QWEN_PROMPT))
+        if n_prompt != 34 or model.cfg.rope.mode != ("norm" if arch == "mistral" else "neox"):
+            fail(f"small_qwen {arch}: a {n_prompt}-token prompt, rope {model.cfg.rope.mode}")
+        counts = small_model_check(path, SMALL_QWEN_PROMPT, must, f"small_qwen {arch} {ftype}",
+                                   model=model, n_stream=16)
+        for k in must:  # a kernel's count comes from the first path that runs it
+            records[k]["launches"] = records[k]["launches"] or counts[k]
+
+
+def _weight_bytes_per_token(model) -> tuple[int, int]:
+    """Bytes of the weights one decode token reads, in GGUF blocks (the
+    least it needs) and in the port's repacked layout: every matrix but the
+    embedding (a row gather); an expert stack counts n_expert_used of its
+    n_expert experts."""
+    from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
+
+    gguf = layout = 0
+    for w in [model.params.get("output")] + [
+            w for layer in model.params["layers"] for w in layer.values()]:
+        if isinstance(w, QTensor):
+            used, n = (model.cfg.n_expert_used, w.n_expert) if w.n_expert else (1, 1)
+            gguf += gguf_nbytes(w) * used // n
+            layout += w.nbytes * used // n
+        elif w is not None and w.dim() == 2:
+            gguf += w.numel() * w.element_size()
+            layout += w.numel() * w.element_size()
+    return gguf, layout
+
+
+SERVE_CONFIGS_QWEN = {  # name → (server flags, kernels its decode must launch)
+    "slots bf16": ([], ["flash_decode", "qmm_q3_k", "qmm_q4_k", "qmm_q6_k"]),
+    "paged q8_0": (["--kv-layout", "paged", "-ctk", "q8_0"],
+                   ["flash_decode_paged_q8", "qmm_q3_k", "qmm_q4_k", "qmm_q6_k"]),
+}
+
+
+def _qwen_cli(records: dict, path: Path, model, label: str, must: list[str], own: str) -> None:
+    """A full-width Qwen model through `_cli_step`, with the weight and KV
+    bytes a token reads. The launches of `own` (the kernel this CLI is the
+    main path of) are this CLI's; another kernel of `must` takes its count
+    from the first path that runs it."""
+    import torch
+
+    ctx, _, counts = _cli_step(records, path, model, label, must, [own])
+    for k in must:
+        records[k]["launches"] = records[k]["launches"] or counts[k]
+    cfg = model.cfg
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2  # bf16 K and V rows
+    wb, lb = _weight_bytes_per_token(model)
+    print(f"  bytes per decode token: weights {wb} in GGUF blocks ({wb / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms at 3.35 TB/s), {lb} in the port's layout; KV cache {kv} a cached row")
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def phase_qwen(records: dict, files: dict, model_of, done_with) -> None:
+    """Qwen2.5-7B-Instruct Q3_K_M at full width and depth (GQA group 7,
+    q/k/v biases; Q3_K q, k, gate|up; Q5_K / Q4_K attn_v and ffn_down; Q6_K
+    LM head) through the CLI, then the server (slots bf16 and paged q8_0)
+    with chats through its ChatML template; then Qwen3-8B Q2_K (q/k norm;
+    Q2_K q, k, gate|up; Q3_K attn_output and ffn_down; Q4_K attn_v) through
+    the CLI."""
+    from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
+
+    model = model_of("q25")
+    _qwen_cli(records, files["q25"][0], model, "Qwen2.5-7B Q3_K_M",
+              ["qmm_q3_k", "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "flash_decode"], "qmm_q3_k")
+    chat = apply_chat_template(model.vocab.chat_template,
+                               [{"role": "system", "content": "Be brief."},
+                                {"role": "user", "content": "Hi"}])
+    print(f"  the GGUF's chat template renders a system+user chat as {chat!r}")
+    if not chat.startswith("<|im_start|>system\nBe brief.<|im_end|>"):
+        fail("the Qwen2.5 template did not render through the chatml family")
+    phase_serve(records, files["q25"][0], model, SERVE_CONFIGS_QWEN, n_ctx=2048,
+                system_repeat=16)
+    done_with("q25")
+    del model
+    _qwen_cli(records, files["q3"][0], model_of("q3"), "Qwen3-8B Q2_K",
+              ["qmm_q2_k", "qmm_q3_k", "qmm_q4_k", "qmm_q6_k", "flash_decode"], "qmm_q2_k")
+    done_with("q3")
 
 
 def phase_q8(records: dict) -> None:
@@ -2161,13 +2303,18 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     **{f"qmm_experts_{k}": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                             "llama_cpp_dsp_tpu/ops/pallas/qmm.py:781",
                             f"per-row nmse <= {QMM_NMSE_TOL:g}")
-       for k in ("q4_0", "q8_0", "q4_k", "q5_k", "q6_k", "q4_1", "q5_0", "q5_1")},
+       for k in ("q4_0", "q8_0", "q4_k", "q5_k", "q6_k", "q4_1", "q5_0", "q5_1", "q2_k",
+                 "q3_k")},
     "qmm_q4_1": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_dsp_tpu/ops/pallas/qmm.py:225", f"nmse <= {QMM_NMSE_TOL:g}"),
     "qmm_q5_0": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_dsp_tpu/ops/pallas/qmm.py:229", f"nmse <= {QMM_NMSE_TOL:g}"),
     "qmm_q5_1": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_dsp_tpu/ops/pallas/qmm.py:241", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q2_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:364", f"nmse <= {QMM_NMSE_TOL:g}"),
+    "qmm_q3_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_dsp_tpu/ops/pallas/qmm.py:374", f"nmse <= {QMM_NMSE_TOL:g}"),
     "mla_decode": ("llama_cpp_dsp_tpu_torch/csrc/mla_decode.cu",
                    "llama_cpp_dsp_tpu/ops/pallas/attention.py:623",
                    f"per-slot nmse <= {MLA_NMSE_TOL:g}"),
@@ -2214,7 +2361,9 @@ def main(argv=None) -> int:
                     "deepseek-llm", None),
              "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe", None),
              "mx": (smoke / "mixtral-8x7b-q4_k_m.gguf", "mixtral-8x7b", "Q4_K_M", "spm",
-                    MIXTRAL_CHAT_TEMPLATE)}
+                    MIXTRAL_CHAT_TEMPLATE),
+             "q25": (smoke / "qwen2.5-7b-q3_k_m.gguf", "qwen2.5-7b", "Q3_K_M", "qwen2", None),
+             "q3": (smoke / "qwen3-8b-q2_k.gguf", "qwen3-8b", "Q2_K", "qwen2", None)}
     loaded = {}
 
     def model_of(key):
@@ -2249,6 +2398,18 @@ def main(argv=None) -> int:
                                               DECODE_CALLS_7B, records)
                                     for k in ("q4_1", "q5_0", "q5_1")),
                                   check_qmm("q8_0", [(2048, 10944)], (1, 8, 128), {}, records),
+                                  check_qmm("q3_k", [*QMM_SHAPES_QWEN, (37888, 3584)],
+                                            (1, 8, 128), DECODE_CALLS_QWEN["q3_k"], records),
+                                  check_qmm("q2_k", [*QMM_SHAPES_QWEN, (1024, 4096),
+                                                     (24576, 4096)],
+                                            (1, 8, 128), DECODE_CALLS_QWEN["q2_k"], records),
+                                  *(check_qmm(k, shapes, (1, 8, 128), {}, records)
+                                    for k, shapes in QWEN_KQ_SHAPES.items()),
+                                  *(check_qmm_experts(k, records, n_expert=128,
+                                                      shapes=QWEN_EXPERT_SHAPES,
+                                                      rows=QWEN_EXPERT_ROWS,
+                                                      decode_calls=QWEN_DECODE_CALLS[k], s_time=8)
+                                    for k in QWEN_DECODE_CALLS),
                                   *(check_qmm_experts(k, records, n_expert=64,
                                                       shapes=DS_EXPERT_SHAPES,
                                                       rows=DS_EXPERT_ROWS,
@@ -2279,7 +2440,9 @@ def main(argv=None) -> int:
                                   done_with("mx"))),
              ("small_ds", lambda: phase_small_ds(records)),
              ("deepseek", lambda: (phase_deepseek(records, files["ds"][0], model_of("ds")),
-                                   done_with("ds")))]
+                                   done_with("ds"))),
+             ("small_qwen", lambda: phase_small_qwen(records)),
+             ("qwen", lambda: phase_qwen(records, files, model_of, done_with))]
     try:
         for name, fn in steps:
             if name in phases:

@@ -1,15 +1,21 @@
 // qmm.cu — packed dequant-matmul y[B,N] f32 = x[B,K] bf16 · dequant(W[N,K])ᵀ
-// for Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K and Q6_K weights kept packed
-// in device memory.
+// for Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights
+// kept packed in device memory.
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/qmm.py::_kernel with the Q4_0 body
 // (_body_q4_0 via _q4_tile_dot), the Q4_1 body (_body_q4_1), the Q5_0 and
 // Q5_1 bodies (_body_q5_0, _body_q5_1), the Q8_0 body (_body_q8_0), and the
-// K-quant bodies _body_q4_K, _body_q5_K and _body_q6_K. It computes what those
-// bodies compute, not their Mosaic plane layout: the weights stay in GGUF
-// block order, with the K-quants' 6-bit scales unpacked once at load
-// (ops/qtensor.py):
-//   Q4_K: qs u8 [N,K/2], sc/mn u8 [N,S,8], d/dmin f32 [N,S]   (S = K/256)
+// K-quant bodies _body_q2_K, _body_q3_K, _body_q4_K, _body_q5_K and
+// _body_q6_K. It computes what those bodies compute, not their Mosaic plane
+// layout: the weights stay in GGUF block order, with the K-quants' packed
+// scales unpacked once at load (ops/qtensor.py):
+//   Q2_K: qs u8 [N,K/4], sc/mn u8 [N,S,16], d/dmin f32 [N,S]  (S = K/256)
+//         w = (d*sc)*q - dmin*mn per 16-element group; in each 128-element
+//         half h, bits 2j..2j+1 of byte l (qs[32h + l]) hold element 32j+l
+//   Q3_K: qs u8 [N,K/4] in Q2_K's order, hmask u8 [N,S,32], sc i8 [N,S,16]
+//         (-32 applied), d f32 [N,S]; w = (d*sc)*(q - 4 + 4h) per 16-element
+//         group, h = bit e/32 of hmask[e%32] for element e of the superblock
+//   Q4_K: qs u8 [N,K/2], sc/mn u8 [N,S,8], d/dmin f32 [N,S]
 //         w = (d*sc)*q - dmin*mn per 32-element group; in each 64-element
 //         chunk j, byte l holds element l of group 2j (low nibble) and of
 //         group 2j+1 (high nibble)
@@ -19,11 +25,14 @@
 //         element l+32i (l < 32) is ql[l] (i even) or ql[l+32] (i odd), low
 //         nibble for i < 2, high for i >= 2, plus bits 2i..2i+1 of qh[l]
 //
-// Bound on this card: at decode (B <= 8) the packed weight bytes over the
-// memory rate. Per 256 weights the repacked layout moves 144 B (Q4_0), 160
-// (Q4_1), 176 (Q5_0), 192 (Q5_1), 272 (Q8_0), 152 (Q4_K; GGUF 144, the
-// unpacked scales and f32 d/dmin cost 8), 184 (Q5_K) and 212 (Q6_K); the
-// arithmetic is ~2 operations per weight element and activation row.
+// Bound on this card: at decode (B <= 8) the weight bytes a product needs
+// over the memory rate, counted in GGUF blocks: per 256 weights 144 B
+// (Q4_0), 160 (Q4_1), 176 (Q5_0), 192 (Q5_1), 272 (Q8_0), 84 (Q2_K), 110
+// (Q3_K), 144 (Q4_K), 176 (Q5_K) and 210 (Q6_K). The repacked layout moves
+// more for the K-quants: 104 (Q2_K: the unpacked 4-bit scale/min pairs and
+// f32 d/dmin cost 20), 116 (Q3_K: the 6-bit scales unpacked to bytes, d in
+// f32), 152 (Q4_K), 184 (Q5_K) and 212 (Q6_K); the arithmetic is ~2
+// operations per weight element and activation row.
 // Design: B <= 8 runs a GEMV, one warp per output row, lanes striding over
 // units of the row: a 32-element block for Q4_0/Q8_0 and the Q4_1/Q5_0/Q5_1
 // structs (one 16-byte load of packed bits, two for Q8_0, plus the block's
@@ -32,10 +41,13 @@
 // qh of the superblock, shared by its four chunks through L1); for Q6_K a
 // 64-element unit of 16 consecutive l of one half, all four i (three
 // 16-byte loads: ql[l], ql[l+32], qh[l]), so K = 4096 gives 64 units for 32
-// lanes. Following ggml's vec_dot order each group's dot of the integer
-// values with x is scaled once by its effective scale (d·sc), and for
-// Q4_K/Q5_K the group's dmin·mn·Σx is subtracted; sums across lanes by warp
-// shuffles; the activations stay in L1/L2 and the weights are read once.
+// lanes; for Q2_K/Q3_K the same 64-element unit, 16 consecutive l of one
+// half and all four shifts j (one 16-byte qs load, Q3_K one more of hmask,
+// 8 scale bytes), so K = 3584 gives 56 units and K = 768 twelve. Following
+// ggml's vec_dot order each group's dot of the integer values with x is
+// scaled once by its effective scale (d·sc), and for Q2_K/Q4_K/Q5_K the
+// group's dmin·mn·Σx is subtracted; sums across lanes by warp shuffles; the
+// activations stay in L1/L2 and the weights are read once.
 // B > 8 (prefill) runs a tiled tensor-core kernel: a 64x64 output tile per
 // block, each 32-wide K step dequantizes its weight tile into shared memory
 // as bf16 (rounded from the same f32 products as the plain version) and
@@ -364,6 +376,147 @@ struct KQuant6 {  // Q6_K
     }
 };
 
+// Q2_K / Q3_K share the 2-bit layout and the GEMV unit: unit u is 16
+// consecutive l (lq = u & 1) of half hh = (u >> 1) & 1 of superblock u >> 2,
+// all four shifts j, i.e. the 16-groups g = 8hh + 2j + lq. lowbits_unit
+// loads its qs bytes and the 8 scale bytes of its half (byte 2j + lq of
+// them is group g's), and the x of group j for row b is 16 bf16 at
+// b*K + 256s + 128hh + 32j + 16lq.
+struct LowUnit {
+    int s, hh, lq;
+    size_t sb;
+    __device__ __forceinline__ LowUnit(int row, int u, int K)
+        : s(u >> 2), hh((u >> 1) & 1), lq(u & 1), sb((size_t)row * (K >> 8) + (u >> 2)) {}
+    // the 16 x of group j of activation row b (f32)
+    __device__ __forceinline__ void x16(const __nv_bfloat16* x, int b, int K, int j,
+                                        float xf[16]) const {
+        const uint4* xp = reinterpret_cast<const uint4*>(
+            x + (size_t)b * K + (size_t)s * 256 + 128 * hh + 32 * j + 16 * lq);
+        bf16x8(__ldg(xp), xf);
+        bf16x8(__ldg(xp + 1), xf + 8);
+    }
+};
+
+// byte 2j + lq of an 8-byte vector of per-group bytes (group 8hh + 2j + lq)
+__device__ __forceinline__ uint32_t group_byte(const uint2 v, int j, int lq) {
+    const uint32_t word = j < 2 ? v.x : v.y;
+    return (word >> (8 * (2 * (j & 1) + lq))) & 0xffu;
+}
+
+struct KQuant2 {  // Q2_K
+    const uint8_t *qs, *sc, *mn;
+    const float *d, *dmin;
+    static constexpr int UNIT = 64;
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const LowUnit un(row, u, K);
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + un.sb * 64 + 32 * un.hh +
+                                                             16 * un.lq));
+        const uint2 sv = __ldg(reinterpret_cast<const uint2*>(sc + un.sb * 16 + 8 * un.hh));
+        const uint2 mv = __ldg(reinterpret_cast<const uint2*>(mn + un.sb * 16 + 8 * un.hh));
+        const float dd = __ldg(d + un.sb), dm = __ldg(dmin + un.sb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float dl = dd * (float)group_byte(sv, j, un.lq);
+            const float ml = dm * (float)group_byte(mv, j, un.lq);
+            float w[16];
+#pragma unroll
+            for (int t = 0; t < 16; ++t) w[t] = (float)((byte_of(q, t) >> (2 * j)) & 3u);
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                float xf[16];
+                un.x16(x, b, K, j, xf);
+                float si = 0.f, xs = 0.f;
+#pragma unroll
+                for (int t = 0; t < 16; ++t) {
+                    si = fmaf(w[t], xf[t], si);
+                    xs += xf[t];
+                }
+                acc[b] += dl * si - ml * xs;
+            }
+        }
+    }
+
+    __device__ __forceinline__ KQuant2 at_expert(int e, int N, int K) const {
+        const size_t sb = (size_t)e * N * (K >> 8);  // superblocks before expert e
+        return KQuant2{qs + sb * 64, sc + sb * 16, mn + sb * 16, d + sb, dmin + sb};
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const int r = k0 & 255, g = r >> 4, hh = r >> 7, j = (r >> 5) & 3, lq = g & 1;
+        const size_t sb = (size_t)row * (K >> 8) + (k0 >> 8);
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + sb * 64 + 32 * hh + 16 * lq));
+        const float dl = __fmul_rn(__ldg(d + sb), (float)__ldg(sc + sb * 16 + g));
+        const float ml = __fmul_rn(__ldg(dmin + sb), (float)__ldg(mn + sb * 16 + g));
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const float qv = (float)((byte_of(q, t) >> (2 * j)) & 3u);
+            out[t] = __float2bfloat16(__fsub_rn(__fmul_rn(qv, dl), ml));
+        }
+    }
+};
+
+struct KQuant3 {  // Q3_K
+    const uint8_t *qs, *hmask;
+    const int8_t* sc;
+    const float* d;
+    static constexpr int UNIT = 64;
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const LowUnit un(row, u, K);
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + un.sb * 64 + 32 * un.hh +
+                                                             16 * un.lq));
+        const uint4 hm = __ldg(reinterpret_cast<const uint4*>(hmask + un.sb * 32 + 16 * un.lq));
+        const uint2 sv = __ldg(reinterpret_cast<const uint2*>(sc + un.sb * 16 + 8 * un.hh));
+        const float dd = __ldg(d + un.sb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float dl = dd * (float)(int8_t)group_byte(sv, j, un.lq);
+            const int bit = 4 * un.hh + j;
+            float w[16];  // q - 4 + 4h, in [-4, 3]
+#pragma unroll
+            for (int t = 0; t < 16; ++t)
+                w[t] = (float)((int)((byte_of(q, t) >> (2 * j)) & 3u) - 4 +
+                               4 * (int)((byte_of(hm, t) >> bit) & 1u));
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+                float xf[16];
+                un.x16(x, b, K, j, xf);
+                float si = 0.f;
+#pragma unroll
+                for (int t = 0; t < 16; ++t) si = fmaf(w[t], xf[t], si);
+                acc[b] = fmaf(dl, si, acc[b]);
+            }
+        }
+    }
+
+    __device__ __forceinline__ KQuant3 at_expert(int e, int N, int K) const {
+        const size_t sb = (size_t)e * N * (K >> 8);
+        return KQuant3{qs + sb * 64, hmask + sb * 32, sc + sb * 16, d + sb};
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const int r = k0 & 255, g = r >> 4, hh = r >> 7, j = (r >> 5) & 3, lq = g & 1;
+        const size_t sb = (size_t)row * (K >> 8) + (k0 >> 8);
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + sb * 64 + 32 * hh + 16 * lq));
+        const uint4 hm = __ldg(reinterpret_cast<const uint4*>(hmask + sb * 32 + 16 * lq));
+        const float dl = __fmul_rn(__ldg(d + sb), (float)__ldg(sc + sb * 16 + g));
+        const int bit = 4 * hh + j;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const int qv = (int)((byte_of(q, t) >> (2 * j)) & 3u) - 4 +
+                           4 * (int)((byte_of(hm, t) >> bit) & 1u);
+            out[t] = __float2bfloat16(__fmul_rn((float)qv, dl));
+        }
+    }
+};
+
 // One warp: y[b, row] = the dot of weight row `row` with activation rows
 // b < NB, lanes striding over the row's units, summed by warp shuffles.
 template <class W, int NB>
@@ -527,8 +680,9 @@ int qmm_experts_launch(const W& w, const void* x, const void* sel, void* y, int 
 
 // x bf16 [B,K]; y f32 [B,N]; the weight fields as in the header comment
 // (Q4_0: qs u8 [N,K/2]; Q8_0: qs i8 [N,K]; both d f16 [N,K/32]; Q4_1 adds
-// m f16 [N,K/32], Q5_0 qh u8 [N,K/8], Q5_1 both). K % 32 == 0
-// (K % 256 == 0 for the K-quants), every pointer 16-byte aligned (checked by
+// m f16 [N,K/32], Q5_0 qh u8 [N,K/8], Q5_1 both; the K-quants' fields in
+// ops/kernels/qmm.py::_fields order). K % 32 == 0 (K % 256 == 0 for the
+// K-quants), every pointer 16-byte aligned (checked by
 // the Python wrapper). Each returns cudaGetLastError() after the launch.
 KERNELS_API int qmm_q4_0(const void* x, const void* qs, const void* d, void* y, int B, int N,
                          int K, void* stream) {
@@ -562,6 +716,22 @@ KERNELS_API int qmm_q5_1(const void* x, const void* qs, const void* qh, const vo
     const LegacyQ5M<true, true> w{static_cast<const uint8_t*>(qs),
                                   static_cast<const uint32_t*>(qh),
                                   static_cast<const __half*>(d), static_cast<const __half*>(m)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q2_k(const void* x, const void* qs, const void* sc, const void* mn,
+                         const void* d, const void* dmin, void* y, int B, int N, int K,
+                         void* stream) {
+    const KQuant2 w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(sc),
+                    static_cast<const uint8_t*>(mn), static_cast<const float*>(d),
+                    static_cast<const float*>(dmin)};
+    return qmm_launch(w, x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_q3_k(const void* x, const void* qs, const void* hmask, const void* sc,
+                         const void* d, void* y, int B, int N, int K, void* stream) {
+    const KQuant3 w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(hmask),
+                    static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
     return qmm_launch(w, x, y, B, N, K, stream);
 }
 
@@ -628,6 +798,23 @@ KERNELS_API int qmm_experts_q5_1(const void* x, const void* sel, const void* qs,
     const LegacyQ5M<true, true> w{static_cast<const uint8_t*>(qs),
                                   static_cast<const uint32_t*>(qh),
                                   static_cast<const __half*>(d), static_cast<const __half*>(m)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q2_k(const void* x, const void* sel, const void* qs, const void* sc,
+                                 const void* mn, const void* d, const void* dmin, void* y, int S,
+                                 int E, int N, int K, void* stream) {
+    const KQuant2 w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(sc),
+                    static_cast<const uint8_t*>(mn), static_cast<const float*>(d),
+                    static_cast<const float*>(dmin)};
+    return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_q3_k(const void* x, const void* sel, const void* qs,
+                                 const void* hmask, const void* sc, const void* d, void* y, int S,
+                                 int E, int N, int K, void* stream) {
+    const KQuant3 w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(hmask),
+                    static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
     return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
 }
 

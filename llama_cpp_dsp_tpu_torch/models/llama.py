@@ -1,11 +1,12 @@
 """Llama transformer on torch tensors (counterpart of the JAX package's
 models/llama.py, for the plain-llama graph).
 
-rms_norm → q/k/v projection → rope → attention over the KV cache → output
-projection → rms_norm → SwiGLU FFN (or the MoE FFN, `ffn_moe`) → residual;
-final norm → lm_head. Weights are QTensors (packed GGUF blocks) or dense
-tensors; matmuls go through ops.qmm, which launches the hand-written
-kernels on the card.
+rms_norm → q/k/v projection (+ q/k/v biases when the layer has them,
+qwen2) → per-head q/k rms norm (cfg.qk_norm, qwen3) → rope → attention over
+the KV cache → output projection → rms_norm → SwiGLU FFN (or the MoE FFN,
+`ffn_moe`) → residual; final norm → lm_head. Weights are QTensors (packed
+GGUF blocks) or dense tensors; matmuls go through ops.qmm, which launches
+the hand-written kernels on the card.
 
 DeepSeek-V2 layers (cfg.kv_lora_rank > 0) take multi-head latent attention
 (models/deepseek2.py) in place of self_attention.
@@ -55,6 +56,7 @@ class LlamaConfig:
     n_ctx_train: int
     rms_eps: float = 1e-5
     rope: RopeParams = field(default_factory=lambda: RopeParams(n_dims=0))
+    qk_norm: bool = False  # per-head q/k rms norm before rope (qwen3, qwen3moe)
     # MoE (JAX models/llama.py:44-45, :68-72, :85); defaults = Mixtral's
     n_expert: int = 0
     n_expert_used: int = 0
@@ -213,8 +215,9 @@ def self_attention(x, layer: Params, cfg: LlamaConfig, positions, cache, layer_i
 
 def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, angles):
     """One-kernel decode attention (ops/kernels/attn_fused.py) when the layer
-    is in the kernel's scope: a bf16 KVCache, Q4_0 row-fused QKV, head_dim
-    128, full-dim NORM rope, B ≤ 8 (attn_fused.in_scope). Returns attn
+    is in the kernel's scope: a bf16 KVCache, Q4_0 row-fused QKV without
+    q/k/v biases or q/k norm (JAX llama.py:487-491), head_dim 128, full-dim
+    NORM rope, B ≤ 8 (attn_fused.in_scope). Returns attn
     [B, H, D] f32 or None. Unlike the JAX gate there is no K % 4096 rule
     and no capacity % 128 rule: both are TPU lane layouts, not limits of
     this kernel, which takes any capacity."""
@@ -225,6 +228,8 @@ def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, angles):
     b = x.shape[0]
     if not (isinstance(fused, QTensor) and fused.kind == GGMLType.Q4_0
             and type(cache) is KVCache and cache.k[0].dtype == torch.bfloat16):
+        return None
+    if "attn_q_bias" in layer or cfg.qk_norm:
         return None
     rp = cfg.rope
     if rp.mode != "norm" or rp.n_dims != d or d != HEAD_DIM:
@@ -246,7 +251,10 @@ def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, angles):
 
 
 def _project_qkv(x, layer: Params, cfg: LlamaConfig, positions):
-    """QKV projections (fused or separate) and rope. Returns
+    """QKV projections (fused or separate), each plus its bias when the
+    layer has one (a bias is applied whenever present, as JAX's `_mm`), the
+    per-head q/k rms norm when cfg.qk_norm (a norm weight in a file without
+    the flag stays unused, as in JAX), and rope. Returns
     q [B,T,H,D], k [B,T,Hkv,D], v [B,T,Hkv,D]."""
     b, t, _ = x.shape
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -257,9 +265,16 @@ def _project_qkv(x, layer: Params, cfg: LlamaConfig, positions):
         q = qmm(x, layer["attn_q"])
         k = qmm(x, layer["attn_k"])
         v = qmm(x, layer["attn_v"])
+    if "attn_q_bias" in layer:
+        q = q + layer["attn_q_bias"]
+        k = k + layer["attn_k_bias"]
+        v = v + layer["attn_v_bias"]
     q = q.reshape(b, t, h, d)
     k = k.reshape(b, t, hkv, d)
     v = v.reshape(b, t, hkv, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer["attn_q_norm"], cfg.rms_eps)
+        k = rms_norm(k, layer["attn_k_norm"], cfg.rms_eps)
     ff = layer.get("rope_freqs")
     q = apply_rope(q, positions, cfg.rope, ff)
     k = apply_rope(k, positions, cfg.rope, ff)

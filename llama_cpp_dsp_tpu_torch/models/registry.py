@@ -1,9 +1,13 @@
 """GGUF metadata → LlamaConfig (counterpart of the JAX package's
-models/registry.py, cut down to the `llama` and `deepseek2` architectures).
+models/registry.py, cut down to the architectures the port runs: `llama`,
+`mistral`, the Qwen family (`qwen2`, `qwen2moe`, `qwen3`, `qwen3moe`),
+`phi3` and `deepseek2`).
 
 Per-architecture flags come from an override function, applied last, as
-the JAX registry applies its `ArchSpec.overrides`. The other architectures
-of the JAX registry are queued in ROADMAP.md (queue A, A3).
+the JAX registry applies its `ArchSpec.overrides`; the rope mode is NEOX for
+the architectures of `_NEOX_ROPE_ARCHS` and NORM otherwise, as in JAX. The
+other architectures of the JAX registry are queued in ROADMAP.md (queue A,
+A3).
 """
 
 from __future__ import annotations
@@ -47,15 +51,45 @@ def _deepseek2(get) -> dict:
     }
 
 
+def _qwen2moe(get) -> dict:
+    """llm_build_qwen2moe (JAX registry.py::_qwen2moe): a top-k softmax
+    router without renormalisation, plus a sigmoid-gated shared expert."""
+    return {"moe_norm_weights": False, "moe_shared_expert": True, "moe_gate_shexp": True}
+
+
+def _qwen3moe(get) -> dict:
+    """llm_build_qwen3moe: q/k norm; the top-k router weights renormalised
+    unless the GGUF's expert_weights_norm (HF norm_topk_prob) says not."""
+    return {"qk_norm": True,
+            "moe_norm_weights": bool(get(Keys.LLM.EXPERT_WEIGHTS_NORM, True))}
+
+
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
     overrides: Callable[[Callable], dict] | None = None  # get → LlamaConfig fields
+    # the arch's GGUF layout, for the writer (tools/synth.py): its files carry
+    # blk.N.attn_qkv.weight; the loader splits an attn_qkv whatever the arch
+    fused_qkv: bool = False
     fused_gate_up: bool = False  # blk.N.ffn_up.weight holds [2*n_ff, C]
 
 
-ARCHS: dict[str, ArchSpec] = {"llama": ArchSpec("llama"),
-                              "deepseek2": ArchSpec("deepseek2", _deepseek2)}
+ARCHS: dict[str, ArchSpec] = {spec.name: spec for spec in (
+    ArchSpec("llama"),
+    ArchSpec("mistral"),
+    ArchSpec("qwen2"),
+    ArchSpec("qwen2moe", _qwen2moe),
+    ArchSpec("qwen3", lambda get: {"qk_norm": True}),
+    ArchSpec("qwen3moe", _qwen3moe),
+    ArchSpec("phi3", fused_qkv=True, fused_gate_up=True),
+    ArchSpec("deepseek2", _deepseek2),
+)}
+
+# llama_model_rope_type's NEOX list (JAX registry.py::_NEOX_ROPE_ARCHS, cut
+# down to the port's archs): every other arch rotates NORM (interleaved
+# pairs). The wrong mode moves a tiny model's logits by only ~1e-3, below
+# loose tolerances, so the tests pin it.
+_NEOX_ROPE_ARCHS = {"qwen2", "qwen2moe", "qwen3", "qwen3moe", "phi3"}
 
 
 def arch_spec(arch: str) -> ArchSpec:
@@ -90,7 +124,7 @@ def config_from_gguf(kv: dict[str, Any]) -> LlamaConfig:
         freq_scale, ext_factor = 1.0 / factor, 1.0
     rope = RopeParams(
         n_dims=int(get(Keys.LLM.ROPE_DIMENSION_COUNT, head_dim)),
-        mode="norm",
+        mode="neox" if arch in _NEOX_ROPE_ARCHS else "norm",
         freq_base=float(get(Keys.LLM.ROPE_FREQ_BASE, 10000.0)),
         freq_scale=freq_scale,
         ext_factor=ext_factor,

@@ -16,9 +16,9 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ Wᵀ (ggml_mul_mat semantics, W [N, K] row-major) → f32, with x
     taken as bf16.
 
-    QTensors (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q4_K, Q5_K, Q6_K) go through the
-    hand-written kernels (ops/kernels/qmm.py); a dense weight is a plain bf16 product with f32
-    accumulation."""
+    QTensors (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K) go
+    through the hand-written kernels (ops/kernels/qmm.py); a dense weight is a plain bf16
+    product with f32 accumulation."""
     if isinstance(w, QTensor):
         from .kernels.qmm import qmm as qmm_kernel
 

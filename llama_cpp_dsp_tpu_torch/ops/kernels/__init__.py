@@ -14,6 +14,8 @@ LAUNCHES: dict[str, int] = {
     "qmm_q5_0": 0,
     "qmm_q5_1": 0,
     "qmm_q8_0": 0,
+    "qmm_q2_k": 0,
+    "qmm_q3_k": 0,
     "qmm_q4_k": 0,
     "qmm_q5_k": 0,
     "qmm_q6_k": 0,
@@ -22,6 +24,8 @@ LAUNCHES: dict[str, int] = {
     "qmm_experts_q5_0": 0,
     "qmm_experts_q5_1": 0,
     "qmm_experts_q8_0": 0,
+    "qmm_experts_q2_k": 0,
+    "qmm_experts_q3_k": 0,
     "qmm_experts_q4_k": 0,
     "qmm_experts_q5_k": 0,
     "qmm_experts_q6_k": 0,

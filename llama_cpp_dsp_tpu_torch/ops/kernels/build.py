@@ -36,6 +36,8 @@ _SIGNATURES = {
     "qmm_q4_1": [_P] * 5 + [_I] * 3 + [_P],  # x, qs, d, m, y
     "qmm_q5_0": [_P] * 5 + [_I] * 3 + [_P],  # x, qs, qh, d, y
     "qmm_q5_1": [_P] * 6 + [_I] * 3 + [_P],  # x, qs, qh, d, m, y
+    "qmm_q2_k": [_P] * 7 + [_I] * 3 + [_P],  # x, qs, sc, mn, d, dmin, y
+    "qmm_q3_k": [_P] * 6 + [_I] * 3 + [_P],  # x, qs, hmask, sc, d, y
     "qmm_q4_k": [_P] * 7 + [_I] * 3 + [_P],  # x, qs, sc, mn, d, dmin, y
     "qmm_q5_k": [_P] * 8 + [_I] * 3 + [_P],  # x, qs, qh, sc, mn, d, dmin, y
     "qmm_q6_k": [_P] * 6 + [_I] * 3 + [_P],  # x, ql, qh, sc, d, y
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "qmm_experts_q4_1": [_P] * 6 + [_I] * 4 + [_P],
     "qmm_experts_q5_0": [_P] * 6 + [_I] * 4 + [_P],
     "qmm_experts_q5_1": [_P] * 7 + [_I] * 4 + [_P],
+    "qmm_experts_q2_k": [_P] * 8 + [_I] * 4 + [_P],
+    "qmm_experts_q3_k": [_P] * 7 + [_I] * 4 + [_P],
     "qmm_experts_q4_k": [_P] * 8 + [_I] * 4 + [_P],
     "qmm_experts_q5_k": [_P] * 9 + [_I] * 4 + [_P],
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],

@@ -1,5 +1,5 @@
 """Packed dequant-matmul y = x · dequant(W)ᵀ for Q4_0, Q4_1, Q5_0, Q5_1,
-Q8_0, Q4_K, Q5_K and Q6_K weights.
+Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights.
 
 Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`,
 `qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a GEMV for B ≤ 8
@@ -12,7 +12,7 @@ to NMSE ≤ 5e-4 (the reference's MUL_MAT tolerance, as in
 tests/test_pallas_qmm.py). The plain version rounds the dequantized weight
 to bf16 before an f32 product, as the JAX package's XLA path does; the GEMV
 keeps the exact integer values and applies each group's scale (and, for
-Q4_K/Q5_K, its min term) to the group's dot, as ggml's vec_dot does.
+Q2_K/Q4_K/Q5_K, its min term) to the group's dot, as ggml's vec_dot does.
 """
 
 from __future__ import annotations
@@ -39,6 +39,13 @@ def _fields(kind: GGMLType, n: int, k: int) -> list[tuple[str, torch.dtype, tupl
     if kind == GGMLType.Q6_K:
         return [("ql", torch.uint8, (n, k // 2)), ("qh", torch.uint8, (n, k // 4)),
                 ("sc", torch.int8, (n, s, 16)), ("d", torch.float32, (n, s))]
+    if kind == GGMLType.Q2_K:
+        return [("qs", torch.uint8, (n, k // 4)), ("sc", torch.uint8, (n, s, 16)),
+                ("mn", torch.uint8, (n, s, 16)), ("d", torch.float32, (n, s)),
+                ("dmin", torch.float32, (n, s))]
+    if kind == GGMLType.Q3_K:
+        return [("qs", torch.uint8, (n, k // 4)), ("hmask", torch.uint8, (n, s, 32)),
+                ("sc", torch.int8, (n, s, 16)), ("d", torch.float32, (n, s))]
     qh = [("qh", torch.uint8, (n, s, 32))] if kind == GGMLType.Q5_K else []
     return [("qs", torch.uint8, (n, k // 2)), *qh, ("sc", torch.uint8, (n, s, 8)),
             ("mn", torch.uint8, (n, s, 8)), ("d", torch.float32, (n, s)),
@@ -49,6 +56,7 @@ def _fields(kind: GGMLType, n: int, k: int) -> list[tuple[str, torch.dtype, tupl
 _ENTRY = {GGMLType.Q4_0: ("qmm_q4_0", 32), GGMLType.Q4_1: ("qmm_q4_1", 32),
           GGMLType.Q5_0: ("qmm_q5_0", 32), GGMLType.Q5_1: ("qmm_q5_1", 32),
           GGMLType.Q8_0: ("qmm_q8_0", 32),
+          GGMLType.Q2_K: ("qmm_q2_k", 256), GGMLType.Q3_K: ("qmm_q3_k", 256),
           GGMLType.Q4_K: ("qmm_q4_k", 256), GGMLType.Q5_K: ("qmm_q5_k", 256),
           GGMLType.Q6_K: ("qmm_q6_k", 256)}
 

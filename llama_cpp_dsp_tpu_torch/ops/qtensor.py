@@ -11,6 +11,12 @@ order (no TPU tile transpose): per 2-D weight [N, K], rows contiguous,
               bit of element j)
 - kind=Q5_1 : the Q5_0 fields + m f16 [N, K/32]     (x = d*q + m)
 - kind=Q8_0 : qs int8 [N, K],    d f16 [N, K/32]   (x = d*q)
+- kind=Q2_K : qs u8 [N, K/4], sc,mn u8 [N, S, 16], d,dmin f32 [N, S]
+              (x = (d*sc)*q - dmin*mn over 16-element groups; in each
+              128-element half, bits 2j..2j+1 of byte l hold element 32j+l)
+- kind=Q3_K : qs u8 [N, K/4] (Q2_K's order), hmask u8 [N, S, 32], sc i8
+              [N, S, 16] (the 6-bit scales unpacked, -32 applied), d f32
+              [N, S]   (x = (d*sc)*(q - 4 + 4h), h bit e/32 of hmask[e%32])
 - kind=Q4_K : qs u8 [N, K/2], sc,mn u8 [N, S, 8], d,dmin f32 [N, S]
               (S = K/256; x = (d*sc)*q - dmin*mn over 32-element groups; in
               each 64-element chunk byte l holds element l in its low and
@@ -39,11 +45,11 @@ import numpy as np
 import torch
 
 from ..gguf.constants import QK_K, GGMLType
-from ..quant.blocks import _blocks, _f32, unpack_scale_min_k4
+from ..quant.blocks import _blocks, _f32, unpack_q3_K_scales, unpack_scale_min_k4
 
 # GGUF kinds with a packed layout (and a hand-written qmm kernel) in the port
 PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
-                GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+                GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
 
 
 @dataclass
@@ -122,6 +128,25 @@ def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
         if kind == GGMLType.Q5_K:
             out["qh"] = _t(b["qh"].reshape(n, s, 32))
         return QTensor(kind, (n, k), out)
+    if kind == GGMLType.Q2_K:
+        b = _blocks(raw, kind)
+        s = k // QK_K
+        return QTensor(kind, (n, k), {
+            "qs": _t(b["qs"].reshape(n, k // 4)),
+            "sc": _t((b["scales"] & 0x0F).reshape(n, s, 16)),
+            "mn": _t((b["scales"] >> 4).reshape(n, s, 16)),
+            "d": _t(_f32(b["d"]).reshape(n, s)),
+            "dmin": _t(_f32(b["dmin"]).reshape(n, s)),
+        })
+    if kind == GGMLType.Q3_K:
+        b = _blocks(raw, kind)
+        s = k // QK_K
+        return QTensor(kind, (n, k), {
+            "qs": _t(b["qs"].reshape(n, k // 4)),
+            "hmask": _t(b["hmask"].reshape(n, s, 32)),
+            "sc": _t(unpack_q3_K_scales(b["scales"]).astype(np.int8).reshape(n, s, 16)),
+            "d": _t(_f32(b["d"]).reshape(n, s)),
+        })
     if kind == GGMLType.Q6_K:
         b = _blocks(raw, kind)
         s = k // QK_K

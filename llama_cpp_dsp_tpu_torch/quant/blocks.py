@@ -1,7 +1,8 @@
 """GGUF block records of the kinds this port runs (Q4_0, Q4_1, Q5_0, Q5_1,
-Q8_0, Q4_K, Q5_K, Q6_K).
+Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K).
 
-The block dtypes, `_blocks`, `_f32`, `unpack_scale_min_k4` and the IQ4_NL
+The block dtypes, `_blocks`, `_f32`, `unpack_scale_min_k4`,
+`unpack_q3_K_scales` and the IQ4_NL
 codebook `KVALUES_IQ4NL` (the iq4_nl KV cache's) of the JAX package's
 quant/ref_numpy.py, cut down to the kinds on the port's path; the layouts
 match ggml-common.h.
@@ -19,6 +20,10 @@ DT = {
     GGMLType.Q5_0: np.dtype([("d", "<f2"), ("qh", "<u4"), ("qs", "u1", (16,))]),
     GGMLType.Q5_1: np.dtype([("d", "<f2"), ("m", "<f2"), ("qh", "<u4"), ("qs", "u1", (16,))]),
     GGMLType.Q8_0: np.dtype([("d", "<f2"), ("qs", "i1", (32,))]),
+    GGMLType.Q2_K: np.dtype(
+        [("scales", "u1", (16,)), ("qs", "u1", (64,)), ("d", "<f2"), ("dmin", "<f2")]),
+    GGMLType.Q3_K: np.dtype(
+        [("hmask", "u1", (32,)), ("qs", "u1", (64,)), ("scales", "u1", (12,)), ("d", "<f2")]),
     GGMLType.Q4_K: np.dtype(
         [("d", "<f2"), ("dmin", "<f2"), ("scales", "u1", (12,)), ("qs", "u1", (128,))]),
     GGMLType.Q5_K: np.dtype(
@@ -60,3 +65,17 @@ def unpack_scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     sc[..., 4:] = (q[..., 8:12] & 0x0F) | ((q[..., 0:4] >> 6) << 4)
     m[..., 4:] = (q[..., 8:12] >> 4) | ((q[..., 4:8] >> 6) << 4)
     return sc, m
+
+
+def unpack_q3_K_scales(scales: np.ndarray) -> np.ndarray:
+    """12 packed bytes → 16 signed 6-bit scales [nb, 16] int32, the −32 bias
+    applied (the kmask bit shuffle of dequantize_row_q3_K)."""
+    a = np.ascontiguousarray(scales).view("<u4").reshape(-1, 3)
+    kmask1, kmask2 = np.uint32(0x03030303), np.uint32(0x0F0F0F0F)
+    tmp = a[:, 2]
+    out = np.empty((len(a), 4), dtype=np.uint32)
+    out[:, 0] = (a[:, 0] & kmask2) | (((tmp >> 0) & kmask1) << 4)
+    out[:, 1] = (a[:, 1] & kmask2) | (((tmp >> 2) & kmask1) << 4)
+    out[:, 2] = ((a[:, 0] >> 4) & kmask2) | (((tmp >> 4) & kmask1) << 4)
+    out[:, 3] = ((a[:, 1] >> 4) & kmask2) | (((tmp >> 6) & kmask1) << 4)
+    return out.view(np.int8).astype(np.int32) - 32

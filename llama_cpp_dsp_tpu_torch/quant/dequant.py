@@ -1,9 +1,9 @@
 """Torch dequantization of QTensors (counterpart of quant/jax_dequant.py).
 
 Bit-exact with the reference dequantize_row_q4_0 / _q4_1 / _q5_0 / _q5_1 /
-_q8_0 / _q4_K / _q5_K / _q6_K (the JAX package's quant/ref_numpy.py): the products are taken in f32
-in the same order. Used by the plain qmm version and the embedding row
-gather.
+_q8_0 / _q2_K / _q3_K / _q4_K / _q5_K / _q6_K (the JAX package's
+quant/ref_numpy.py): the products are taken in f32 in the same order.
+Used by the plain qmm version and the embedding row gather.
 """
 
 from __future__ import annotations
@@ -19,6 +19,14 @@ def _nibbles_k(qs: torch.Tensor, n: int, s: int) -> torch.Tensor:
     high nibble element l of group 2j+1."""
     b = qs.reshape(n, s, 4, 1, 32)
     return torch.cat([b & 0x0F, b >> 4], dim=3).reshape(n, s, 8, 32).to(torch.int32)
+
+
+def _crumbs_k(qs: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """Q2_K / Q3_K 2-bit field [N, S*64] → int32 [N, S, 2, 4, 32]: in each
+    128-element half h, bits 2j..2j+1 of byte l are element 32j + l."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=qs.device)
+    b = qs.reshape(n, s, 2, 1, 32)
+    return ((b >> shifts[:, None]) & 3).to(torch.int32)
 
 
 def dequant_fields(kind: GGMLType, f: dict[str, torch.Tensor],
@@ -60,6 +68,22 @@ def dequant_fields(kind: GGMLType, f: dict[str, torch.Tensor],
         dl = f["d"][:, :, None] * f["sc"].float()  # effective scale per 32-group
         ml = f["dmin"][:, :, None] * f["mn"].float()
         y = q.float() * dl[..., None] - ml[..., None]
+        return y.reshape(n, s * 256).to(dtype)
+    if kind == GGMLType.Q2_K:  # x = (d*sc)*q - dmin*mn over 16-element groups
+        n, s = f["d"].shape
+        q = _crumbs_k(f["qs"], n, s).reshape(n, s, 16, 16).float()
+        dl = f["d"][:, :, None] * f["sc"].float()
+        ml = f["dmin"][:, :, None] * f["mn"].float()
+        y = q * dl[..., None] - ml[..., None]
+        return y.reshape(n, s * 256).to(dtype)
+    if kind == GGMLType.Q3_K:  # x = (d*sc)*(q - 4 + 4h); bit 4h+j of hmask byte l
+        n, s = f["d"].shape
+        q = _crumbs_k(f["qs"], n, s)
+        bit = torch.arange(8, dtype=torch.uint8, device=q.device)
+        h = ((f["hmask"][:, :, None, :] >> bit[:, None]) & 1).to(torch.int32)  # [N,S,8,32]
+        q = q - 4 + 4 * h.reshape(n, s, 2, 4, 32)
+        dl = f["d"][:, :, None] * f["sc"].float()
+        y = q.reshape(n, s, 16, 16).float() * dl[..., None]
         return y.reshape(n, s * 256).to(dtype)
     if kind == GGMLType.Q6_K:
         n, s = f["d"].shape

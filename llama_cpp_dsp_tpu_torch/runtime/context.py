@@ -47,8 +47,10 @@ def convert_params_to_kernel(params: dict) -> dict:
     """Row-fuse the q|k|v and gate|up QTensors of each layer into one weight
     each ("attn_qkv_fused", "ffn_gateup_fused"), so each pair or triple is
     one kernel call. The port keeps GGUF block order, so fusing is a
-    concatenation of rows. Expert stacks are never fused (JAX's `fusable`);
-    they keep their expert axis for the selected-expert kernel."""
+    concatenation of rows. The q/k/v biases stay apart under their own keys
+    and are added after the fused output is split, as JAX does. Expert
+    stacks are never fused (JAX's `fusable`); they keep their expert axis
+    for the selected-expert kernel."""
     params = dict(params)
     new_layers = []
     for layer in params["layers"]:

@@ -1,7 +1,8 @@
 """Model loader: GGUF file → (config, params, vocab, tokenizer).
 
 Counterpart of the JAX package's runtime/loader.py (`load_model`,
-`_split_fused`, `LoadedModel`) for the llama and deepseek2 architectures.
+`_split_fused`, `LoadedModel`) for the architectures of
+models/registry.py (llama, mistral, the Qwen family, phi3, deepseek2).
 Tensors are repacked into QTensors on the CPU; LlamaContext moves them to
 its device. An MLA model's attn_kv_b is split into bf16 W_uk / W_uv here,
 once (`models/deepseek2.py::split_kv_b`). A tensor that the JAX loader maps
@@ -42,6 +43,14 @@ _LAYER_TENSORS = {
     "attn_v.weight": "attn_v",
     "attn_qkv.weight": "attn_qkv",
     "attn_output.weight": "attn_output",
+    # Qwen2 q/k/v biases (a fused qkv bias is split like its weight) and
+    # Qwen3 per-head q/k norms
+    "attn_q.bias": "attn_q_bias",
+    "attn_k.bias": "attn_k_bias",
+    "attn_v.bias": "attn_v_bias",
+    "attn_qkv.bias": "attn_qkv_bias",
+    "attn_q_norm.weight": "attn_q_norm",
+    "attn_k_norm.weight": "attn_k_norm",
     "ffn_norm.weight": "ffn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
@@ -80,8 +89,7 @@ _GLOBAL_TENSORS = {
 # decoder archs, A8 the other model families (SSM, RWKV, BERT)
 _A3_LAYER = (
     "attn_norm.bias", "attn_norm_2.weight", "attn_norm_2.bias", "attn_output.bias",
-    "attn_q.bias", "attn_k.bias", "attn_v.bias", "attn_qkv.bias", "attn_q_norm.weight",
-    "attn_k_norm.weight", "attn_q_norm.bias", "attn_k_norm.bias", "attn_post_norm.weight",
+    "attn_q_norm.bias", "attn_k_norm.bias", "attn_post_norm.weight",
     "post_attention_norm.weight", "attn_sub_norm.weight", "ffn_sub_norm.weight",
     "attn_q.scale", "attn_k.scale", "attn_v.scale", "attn_output.scale", "ffn_gate.scale",
     "ffn_up.scale", "ffn_down.scale", "ffn_norm.bias", "ffn_post_norm.weight",
@@ -186,15 +194,17 @@ def _row_slice(w, start: int, stop: int):
 
 
 def _split_fused(params: dict[str, Any], cfg: LlamaConfig, spec) -> None:
-    """Split fused attn_qkv / gate-up ffn_up tensors into the canonical keys."""
+    """Split fused attn_qkv (and its bias) / gate-up ffn_up tensors into the
+    canonical keys."""
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
+    parts = (("q", 0, qdim), ("k", qdim, qdim + kvdim), ("v", qdim + kvdim, qdim + 2 * kvdim))
     for layer in params["layers"]:
-        qkv = layer.pop("attn_qkv", None)
-        if qkv is not None:
-            layer["attn_q"] = _row_slice(qkv, 0, qdim)
-            layer["attn_k"] = _row_slice(qkv, qdim, qdim + kvdim)
-            layer["attn_v"] = _row_slice(qkv, qdim + kvdim, qdim + 2 * kvdim)
+        for key, suffix in (("attn_qkv", ""), ("attn_qkv_bias", "_bias")):
+            fused = layer.pop(key, None)
+            if fused is not None:
+                for part, lo, hi in parts:
+                    layer[f"attn_{part}{suffix}"] = _row_slice(fused, lo, hi)
         if spec.fused_gate_up and "ffn_gate" not in layer and "ffn_up" in layer:
             up = layer.pop("ffn_up")
             ff = up.shape[0] // 2

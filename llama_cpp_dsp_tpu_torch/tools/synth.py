@@ -6,10 +6,13 @@ GGUF file so the port's loader, CLI and server run on it. The blocks are
 random bits with small finite f16 scales — no quantizer runs — so a
 full-width 8B file is written in seconds; decode cost does not depend on
 weight values. The ftype picks each tensor's kind: every matrix Q4_0, Q4_1
-or Q8_0, or llama.cpp's Q4_K_M / Q5_K_M mix (`tensor_type`, with its
-block-size fallback for rows whose K is not a multiple of 256). The vocab
-is a synthetic SPM one, or a byte-level BPE one in the style of llama-3
-("llama-bpe") or DeepSeek ("deepseek-llm"). An MoE config (n_expert > 0,
+or Q8_0, or llama.cpp's Q2_K / Q3_K_M / Q4_K_M / Q5_K_M mix (`tensor_type`,
+with its block-size fallback for rows whose K is not a multiple of 256).
+The vocab is a synthetic SPM one, or a byte-level BPE one in the style of
+llama-3 ("llama-bpe"), DeepSeek ("deepseek-llm") or Qwen ("qwen2", with a
+ChatML template). The Qwen family's files carry q/k/v biases (qwen2,
+qwen2moe) or per-head q/k norms (qwen3, qwen3moe); a phi3 file carries
+fused attn_qkv and gate|up ffn_up tensors. An MoE config (n_expert > 0,
 e.g. Mixtral-8x7B) gets an f32 router `ffn_gate_inp` [E, C] and expert
 stacks `ffn_{gate,up,down}_exps` [E, N, K] in place of the dense FFN; a
 DeepSeek-V2 config (arch "deepseek2") gets the MLA attention tensors, a
@@ -20,6 +23,7 @@ tensor at a time (a Mixtral file is ~26 GB).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -27,6 +31,7 @@ import numpy as np
 from ..gguf.constants import GGML_TYPE_TRAITS, GGMLType
 from ..gguf.writer import GGUFWriter
 from ..models.llama import LlamaConfig
+from ..models.registry import arch_spec
 from ..ops.qtensor import QTensor, repack
 from ..ops.rope import RopeParams
 from ..quant.blocks import DT
@@ -76,6 +81,24 @@ DEEPSEEK_V2_LITE = LlamaConfig(
 DEEPSEEK_V2_LITE_EXPERTS = (1408, 2)
 # yarn_log_multiplier = 0.1 · mscale_all_dim (0.707), as the converter writes it
 DEEPSEEK_V2_YARN_LOG_MUL = 0.0707
+# Qwen/Qwen2.5-7B-Instruct config.json: 28 layers, hidden 3584, 28 heads
+# over 4 KV heads (head_dim 128), intermediate 18944, vocab 152064, rope
+# theta 1e6 (NEOX), rms eps 1e-6, max_position_embeddings 32768, untied
+# output, q/k/v biases (arch qwen2)
+QWEN2_5_7B = LlamaConfig(
+    arch="qwen2", n_layers=28, n_embd=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+    n_ff=18944, n_vocab=152064, n_ctx_train=32768, rms_eps=1e-6,
+    rope=RopeParams(n_dims=128, mode="neox", freq_base=1000000.0),
+)
+# Qwen/Qwen3-8B config.json: 36 layers, hidden 4096, 32 heads over 8 KV
+# heads, head_dim 128, intermediate 12288, vocab 151936, rope theta 1e6
+# (NEOX), rms eps 1e-6, max_position_embeddings 40960, untied output, q/k
+# rms norms, no biases (arch qwen3)
+QWEN3_8B = LlamaConfig(
+    arch="qwen3", n_layers=36, n_embd=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    n_ff=12288, n_vocab=151936, n_ctx_train=40960, rms_eps=1e-6,
+    rope=RopeParams(n_dims=128, mode="neox", freq_base=1000000.0), qk_norm=True,
+)
 LLAMA2_13B = LlamaConfig(
     arch="llama", n_layers=40, n_embd=5120, n_heads=40, n_kv_heads=40, head_dim=128,
     n_ff=13824, n_vocab=32000, n_ctx_train=4096, rms_eps=1e-5,
@@ -89,7 +112,32 @@ CONFIGS = {
     "llama2-13b": LLAMA2_13B,
     "mixtral-8x7b": MIXTRAL_8X7B,
     "deepseek-v2-lite": DEEPSEEK_V2_LITE,
+    "qwen2.5-7b": QWEN2_5_7B,
+    "qwen3-8b": QWEN3_8B,
 }
+
+
+def unit_config(arch: str) -> LlamaConfig:
+    """A unit-size model of `arch` (2 layers, width 256, head_dim 128, two
+    query heads over one KV head, vocab 2048) with the flags its GGUF
+    carries: the Qwen family's rope, q/k norm (qwen3, qwen3moe) and MoE
+    (16 experts top-4, so that no Mixtral-only row of `tensor_type`
+    applies; qwen2moe with a sigmoid-gated shared expert and no
+    renormalisation). Its expert widths are `UNIT_EXPERTS`."""
+    cfg = LlamaConfig(arch=arch, n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
+                      head_dim=128, n_ff=512, n_vocab=2048, n_ctx_train=256, rms_eps=1e-6,
+                      rope=RopeParams(n_dims=128, mode="norm" if arch == "mistral" else "neox",
+                                      freq_base=1000000.0),
+                      qk_norm=arch in ("qwen3", "qwen3moe"))
+    if arch == "qwen2moe":
+        return dataclasses.replace(cfg, n_expert=16, n_expert_used=4, moe_norm_weights=False,
+                                   moe_shared_expert=True, moe_gate_shexp=True)
+    if arch == "qwen3moe":
+        return dataclasses.replace(cfg, n_expert=16, n_expert_used=4)
+    return cfg
+
+
+UNIT_EXPERTS = (256, 2)  # routed expert width, shared experts (qwen2moe's)
 
 
 # A block's d is uniform in [0, D_MAX): for Q4_0 the dequantized weights
@@ -100,13 +148,14 @@ CONFIGS = {
 # attn_k / attn_v) was far off a real one's scales.
 _D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q4_1: 0.02, GGMLType.Q5_0: 0.01,
           GGMLType.Q5_1: 0.01, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
-          GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5}
+          GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5, GGMLType.Q2_K: 9.5e-3,
+          GGMLType.Q3_K: 2.5e-3}
 # K-quant mins: each group's 6-bit min equals its scale and dmin = d·mean(q),
 # so every 32-element group d·sc·q − dmin·mn is zero-mean, as Q4_0's q − 8
 # is. Random mins would give each group a common offset; the offsets of two
 # matrices line up along K, and 32 layers of them make the activations and
 # attention scores far larger than a real model's.
-_DMIN_PER_D = {GGMLType.Q4_K: 7.5, GGMLType.Q5_K: 15.5}
+_DMIN_PER_D = {GGMLType.Q4_K: 7.5, GGMLType.Q5_K: 15.5, GGMLType.Q2_K: 1.5}
 # Q4_1 / Q5_1 blocks alike: m = -d·mean(q), so d·q + m is zero-mean
 _M_PER_D = {GGMLType.Q4_1: -7.5, GGMLType.Q5_1: -15.5}
 
@@ -124,6 +173,17 @@ def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) 
         blocks["m"] = (d * np.float32(_M_PER_D[kind])).astype(np.float16)
     if kind in _DMIN_PER_D:
         blocks["dmin"] = (d * np.float32(_DMIN_PER_D[kind])).astype(np.float16)
+    if kind == GGMLType.Q2_K:  # each group's 4-bit min (high nibble) = its scale
+        blocks["scales"] = (blocks["scales"] & 0x0F) * 0x11
+    elif kind == GGMLType.Q3_K:
+        # no min: the codes q - 4 + 4h are drawn from -3..3 (never -4), so
+        # every group is zero-mean; the 6-bit scales stay random (signed)
+        u = rng.integers(1, 8, size=(n_blocks, 2, 4, 32), dtype=np.uint8)  # [half, j, l]
+        j = np.arange(4, dtype=np.uint8)[:, None]
+        blocks["qs"] = ((u & 3) << (2 * j)).sum(axis=2, dtype=np.uint8).reshape(n_blocks, 64)
+        bit = (4 * np.arange(2, dtype=np.uint8)[:, None, None] + j)  # bit 4·half + j
+        blocks["hmask"] = ((u >> 2) << bit).reshape(n_blocks, 8, 32).sum(axis=1, dtype=np.uint8)
+    elif kind in _DMIN_PER_D:
         # get_scale_min_k4 packing: bytes 4-7 hold the mins of groups 0-3
         # (and the top bits of 4-7), bytes 8-11 the low bits of groups 4-7
         # (scale in the low nibble, min in the high one)
@@ -180,6 +240,17 @@ DEEPSEEK2_CHAT_TEMPLATE = (
     "{{ 'Assistant: ' + message['content'] + eos_token }}{% elif message['role'] == 'system' %}"
     "{{ message['content'] + '\\n\\n' }}{% endif %}{% endfor %}{% if add_generation_prompt %}"
     "{{ 'Assistant:' }}{% endif %}")
+# Qwen2.5-7B-Instruct's ChatML template (tokenizer_config.json, without the
+# tool-calling branches): a default system turn when the chat has none; the
+# server renders it through the builtin "chatml" family its markers name
+QWEN2_CHAT_TEMPLATE = (
+    "{%- if messages[0]['role'] == 'system' %}{{- '<|im_start|>system\\n' + "
+    "messages[0]['content'] + '<|im_end|>\\n' }}{%- else %}{{- '<|im_start|>system\\nYou are "
+    "Qwen, created by Alibaba Cloud. You are a helpful assistant.<|im_end|>\\n' }}{%- endif %}"
+    "{%- for message in messages %}{%- if not (message.role == 'system' and loop.first) %}"
+    "{{- '<|im_start|>' + message.role + '\\n' + message.content + '<|im_end|>' + '\\n' }}"
+    "{%- endif %}{%- endfor %}{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}"
+    "{%- endif %}")
 N_CONTROL = 256  # control tokens in the last ids (llama-3: 128000.. at full size)
 # the byte-level BPE presets `bpe_vocab` writes: pre-tokenizer → (control
 # tokens first in the control block, index of bos, eos and eot among them,
@@ -190,9 +261,12 @@ _LLAMA3_CONTROL = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_t
                    "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
 _DEEPSEEK_CONTROL = ["<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>", "<｜fim▁hole｜>",
                      "<｜fim▁begin｜>", "<｜fim▁end｜>"]
+# Qwen2 / Qwen3 GGUFs: bos <|endoftext|>, eos <|im_end|>, no BOS added
+_QWEN2_CONTROL = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
 BPE_PRESETS = {
     "llama-bpe": (_LLAMA3_CONTROL, (0, 1, 9), None, LLAMA3_CHAT_TEMPLATE),
     "deepseek-llm": (_DEEPSEEK_CONTROL, (0, 1, None), True, DEEPSEEK2_CHAT_TEMPLATE),
+    "qwen2": (_QWEN2_CONTROL, (0, 2, None), False, QWEN2_CHAT_TEMPLATE),
 }
 
 
@@ -246,40 +320,72 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
-FTYPES = ("Q4_0", "Q4_1", "Q8_0", "Q4_K_M", "Q5_K_M")
+FTYPES = ("Q4_0", "Q4_1", "Q8_0", "Q2_K", "Q3_K_M", "Q4_K_M", "Q5_K_M")
+# an ftype's default kind (the JAX package's tools/quantize.py FTYPE_DEFAULT_TYPE)
+_DEFAULT_KIND = {"Q2_K": GGMLType.Q2_K, "Q3_K_M": GGMLType.Q3_K, "Q4_K_M": GGMLType.Q4_K,
+                 "Q5_K_M": GGMLType.Q5_K}
 # llama.cpp's kind for a row length K that is not a multiple of the chosen
 # kind's block (the JAX package's tools/quantize.py:81-89, :220-227)
-_FALLBACK = {GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q5_K: GGMLType.Q5_1,
+_FALLBACK = {GGMLType.Q2_K: GGMLType.Q4_0, GGMLType.Q3_K: GGMLType.Q4_1,
+             GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q5_K: GGMLType.Q5_1,
              GGMLType.Q6_K: GGMLType.Q8_0}
 
 
 def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
-                k: int = 0) -> GGMLType:
+                k: int = 0, n_gqa: int = 1) -> GGMLType:
     """The kind of tensor `name` (row length k) in a file of `ftype`. Q4_0 /
-    Q4_1 / Q8_0: every matrix that kind. Q4_K_M / Q5_K_M: llama_tensor_get_type's
+    Q4_1 / Q8_0: every matrix that kind. The K-quant mixes: llama_tensor_get_type's
     rows for a model with an output tensor (the JAX package's
-    tools/quantize.py:121-228): the LM head Q6_K; attn_v and every ffn_down
-    (a dense one, an expert stack's ffn_down_exps, a shared expert's
-    ffn_down_shexp) Q6_K in the use_more_bits layers, counted by layer
-    index; the rest Q4_K / Q5_K; with 8 experts (Mixtral) attn_k and attn_v
-    Q8_0 and attn_output Q5_K. Then the block-size fallback: a K-quant
-    whose block does not divide k becomes Q5_0 (from Q4_K), Q5_1 (Q5_K) or
-    Q8_0 (Q6_K), as DeepSeek-V2-Lite's K = 1408 expert rows and K = 10944
-    dense ffn_down do."""
+    tools/quantize.py:121-228), with attn_v and ffn_down counted by layer
+    index (one of each a layer): the LM head Q6_K; attn_v Q4_K (Q2_K at
+    n_gqa ≥ 4, else Q3_K), Q5_K in layers 0-1 then Q4_K (Q3_K_M), or Q6_K
+    in the use_more_bits layers (Q4_K_M, Q5_K_M); every ffn_down (a dense
+    one, an expert stack's, a shared expert's) Q3_K (Q2_K), Q5_K in the
+    first n_layers/16 layers then Q4_K (Q3_K_M), or Q6_K where use_more_bits
+    (Q4_K_M, Q5_K_M); attn_output Q3_K (Q2_K) or Q4_K (Q3_K_M); a fused
+    attn_qkv Q4_K (Q3_K_M), Q5_K (Q4_K_M) or Q6_K (Q5_K_M); with 8
+    experts (Mixtral) attn_k and attn_v Q8_0 and attn_output Q5_K; the rest
+    the ftype's kind. Then the block-size fallback: a K-quant whose block
+    does not divide k becomes Q4_0 (from Q2_K), Q4_1 (Q3_K), Q5_0 (Q4_K),
+    Q5_1 (Q5_K) or Q8_0 (Q6_K), as DeepSeek-V2-Lite's K = 1408 expert rows
+    and K = 10944 dense ffn_down do."""
     if ftype in ("Q4_0", "Q4_1", "Q8_0"):
         return GGMLType[ftype]
     if ftype not in FTYPES:
         raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
-    kind = GGMLType.Q4_K if ftype == "Q4_K_M" else GGMLType.Q5_K
+    kind = _DEFAULT_KIND[ftype]
+    layer = int(name.split(".")[1]) if name.startswith("blk.") else 0
     if name == "output.weight":
         kind = GGMLType.Q6_K
-    elif n_expert == 8 and name.endswith(("attn_k.weight", "attn_v.weight")):
-        kind = GGMLType.Q8_0
-    elif n_expert == 8 and name.endswith("attn_output.weight"):
-        kind = GGMLType.Q5_K
-    elif name.startswith("blk.") and ("attn_v.weight" in name or "ffn_down" in name):
-        if use_more_bits(int(name.split(".")[1]), n_layers):
+    elif "attn_v.weight" in name:
+        if ftype == "Q2_K":
+            kind = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.Q3_K
+        elif ftype == "Q3_K_M":
+            kind = GGMLType.Q5_K if layer < 2 else GGMLType.Q4_K
+        elif use_more_bits(layer, n_layers):
             kind = GGMLType.Q6_K
+        if n_expert == 8:
+            kind = GGMLType.Q8_0
+    elif "attn_k.weight" in name:
+        if n_expert == 8:
+            kind = GGMLType.Q8_0
+    elif "ffn_down" in name:
+        if ftype == "Q2_K":
+            kind = GGMLType.Q3_K
+        elif ftype == "Q3_K_M":
+            kind = GGMLType.Q5_K if layer < n_layers // 16 else GGMLType.Q4_K
+        elif use_more_bits(layer, n_layers):
+            kind = GGMLType.Q6_K
+    elif "attn_output.weight" in name:
+        if n_expert == 8:
+            kind = GGMLType.Q5_K
+        elif ftype == "Q2_K":
+            kind = GGMLType.Q3_K
+        elif ftype == "Q3_K_M":
+            kind = GGMLType.Q4_K
+    elif "attn_qkv.weight" in name:
+        kind = {"Q3_K_M": GGMLType.Q4_K, "Q4_K_M": GGMLType.Q5_K,
+                "Q5_K_M": GGMLType.Q6_K}.get(ftype, kind)
     if k % GGML_TYPE_TRAITS[kind].block_size:
         kind = _FALLBACK[kind]
     return kind
@@ -291,15 +397,22 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     """Write `cfg` as a GGUF of random blocks whose kinds follow `ftype`
     (`tensor_type`: for Q4_0 / Q4_1 / Q8_0 every matrix, the embedding and
     the LM head included), f32 norm weights of ones and a synthetic vocab:
-    "spm", or a byte-level BPE one ("llama-bpe", "deepseek-llm": `bpe_vocab`,
-    with the preset's chat template). A `chat_template` given is written as
-    the GGUF's template. A deepseek2 config is written with its MLA, shared-
-    expert, leading-dense and YaRN keys, as llama.cpp's converter writes
-    them. `experts` = (routed expert width, shared experts): by default
+    "spm", or a byte-level BPE one ("llama-bpe", "deepseek-llm", "qwen2":
+    `bpe_vocab`, with the preset's chat template). A `chat_template` given
+    is written as the GGUF's template. A deepseek2 config is written with
+    its MLA, shared-expert, leading-dense and YaRN keys, as llama.cpp's
+    converter writes them. The Qwen family adds f32 q/k/v biases (qwen2,
+    qwen2moe) or per-head q/k norm weights near 1 (cfg.qk_norm); qwen2moe's
+    shared expert has its f32 gate `ffn_gate_inp_shexp` [1, C]; an arch
+    whose registry row has fused_qkv / fused_gate_up (phi3) gets one
+    attn_qkv [(H + 2·Hkv)·D, C] and one gate|up ffn_up [2·n_ff, C] a layer.
+    `experts` = (routed expert width, shared experts): by default
     DEEPSEEK_V2_LITE_EXPERTS for deepseek2, else (n_ff, 0)."""
     rng = np.random.default_rng(seed)
     arch = cfg.arch
     mla = cfg.kv_lora_rank > 0
+    spec = arch_spec(arch)
+    biased = arch in ("qwen2", "qwen2moe")  # llm_build_qwen2 / _qwen2moe: q/k/v biases
     if experts is None:
         experts = DEEPSEEK_V2_LITE_EXPERTS if arch == "deepseek2" else (cfg.n_ff, 0)
     ff_exp, n_shared = experts
@@ -317,6 +430,12 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     if cfg.n_expert:
         w.add_uint32(f"{arch}.expert_count", cfg.n_expert)
         w.add_uint32(f"{arch}.expert_used_count", cfg.n_expert_used)
+    if cfg.n_expert and arch in ("qwen2moe", "qwen3moe"):
+        w.add_uint32(f"{arch}.expert_feed_forward_length", ff_exp)
+        if n_shared:
+            w.add_uint32(f"{arch}.expert_shared_feed_forward_length", n_shared * ff_exp)
+        if arch == "qwen3moe":
+            w.add_bool(f"{arch}.expert_weights_norm", cfg.moe_norm_weights)
     if mla:
         w.add_uint32(f"{arch}.leading_dense_block_count", cfg.n_dense_layers)
         w.add_uint32(f"{arch}.attention.kv_lora_rank", cfg.kv_lora_rank)
@@ -350,16 +469,24 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
 
     def add_q(name: str, n: int, k: int, e: int = 0) -> None:
         """A packed [N, K] tensor, or an expert stack [E, N, K] for e > 0."""
-        kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert, k)
+        kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert, k,
+                           cfg.n_heads // cfg.n_kv_heads)
         if k % GGML_TYPE_TRAITS[kind].block_size:
             raise ValueError(f"{name}: K={k} is not a multiple of {kind.name}'s block")
         w.add_tensor(name, lambda: synth_raw(rng, kind, (max(e, 1), n, k)), ggml_type=kind,
                      ne_shape=(k, n, e) if e else (k, n))
 
     def add_ffn(p: str, suffix: str, ff: int, e: int = 0) -> None:
-        add_q(f"{p}ffn_gate{suffix}.weight", ff, c, e)
-        add_q(f"{p}ffn_up{suffix}.weight", ff, c, e)
+        if spec.fused_gate_up and not suffix:  # phi3: gate rows, then up rows
+            add_q(f"{p}ffn_up.weight", 2 * ff, c)
+        else:
+            add_q(f"{p}ffn_gate{suffix}.weight", ff, c, e)
+            add_q(f"{p}ffn_up{suffix}.weight", ff, c, e)
         add_q(f"{p}ffn_down{suffix}.weight", c, ff, e)
+
+    def add_f32(name: str, shape: tuple[int, ...], mean: float, std: float) -> None:
+        w.add_tensor(name, lambda: (mean + rng.standard_normal(shape) * std).astype(np.float32),
+                     ggml_type=GGMLType.F32, ne_shape=tuple(reversed(shape)))
 
     c, hd = cfg.n_embd, cfg.head_dim
     ones = np.ones(c, np.float32)
@@ -375,10 +502,20 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
             add_q(p + "attn_kv_b.weight", h * (cfg.qk_nope_dim + cfg.v_head_dim), r)
             add_q(p + "attn_output.weight", c, h * cfg.v_head_dim)
         else:
-            add_q(p + "attn_q.weight", cfg.n_heads * hd, c)
-            add_q(p + "attn_k.weight", cfg.n_kv_heads * hd, c)
-            add_q(p + "attn_v.weight", cfg.n_kv_heads * hd, c)
-            add_q(p + "attn_output.weight", c, cfg.n_heads * hd)
+            qdim, kvdim = cfg.n_heads * hd, cfg.n_kv_heads * hd
+            if spec.fused_qkv:
+                add_q(p + "attn_qkv.weight", qdim + 2 * kvdim, c)
+            else:
+                add_q(p + "attn_q.weight", qdim, c)
+                add_q(p + "attn_k.weight", kvdim, c)
+                add_q(p + "attn_v.weight", kvdim, c)
+            if biased:
+                for part, dim in (("q", qdim), ("k", kvdim), ("v", kvdim)):
+                    add_f32(f"{p}attn_{part}.bias", (dim,), 0.0, 0.5)
+            if cfg.qk_norm:  # per-head weights [D], told apart by their values
+                add_f32(p + "attn_q_norm.weight", (hd,), 1.0, 0.1)
+                add_f32(p + "attn_k_norm.weight", (hd,), 1.0, 0.1)
+            add_q(p + "attn_output.weight", c, qdim)
         w.add_tensor(p + "ffn_norm.weight", ones)
         if cfg.n_expert and i >= cfg.n_dense_layers:  # the router stays f32, as llama.cpp
             e = cfg.n_expert                          # leaves it
@@ -391,6 +528,8 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
             add_ffn(p, "_exps", ff_exp, e)
             if cfg.moe_shared_expert:
                 add_ffn(p, "_shexp", n_shared * ff_exp)
+            if cfg.moe_gate_shexp:  # qwen2moe: the shared expert's sigmoid gate
+                add_f32(p + "ffn_gate_inp_shexp.weight", (1, c), 0.0, float(std))
             continue
         add_ffn(p, "", cfg.n_ff)
     w.add_tensor("output_norm.weight", ones)

@@ -65,7 +65,8 @@ def test_port_imports_with_jax_blocked():
         ids = tok.encode("<|begin_of_text|>Hello, wörld 123!", parse_special=True)
         assert ids[:2] == [tok.vocab.bos_id] * 2 and tok.decode(ids) == "Hello, wörld 123!"
         rng = np.random.default_rng(0)
-        for kind in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
+        for kind in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K,
+                     GGMLType.Q6_K):
             assert dequant(synth_qtensor(rng, kind, (4, 512))).isfinite().all()
         # an expert stack, the selected-expert plain path and the MoE FFN
         import torch
@@ -146,6 +147,14 @@ def test_port_imports_with_jax_blocked():
         other = LlamaContext(tiny, n_ctx=16, device="cpu")
         assert state_io.load_state(other, path) == [1, 2, 3]
         assert torch.equal(other.cache.k[0][:, :, :3], ctx.cache.k[0][:, :, :3])
+        # the Qwen family: a qwen2moe Q2_K file (biases, a gated shared
+        # expert, NEOX rope) through the loader and a prompt + decode step
+        from llama_cpp_dsp_tpu_torch.tools.synth import UNIT_EXPERTS, unit_config
+        write_synth_gguf(path, unit_config("qwen2moe"), "Q2_K", vocab="qwen2",
+                         experts=UNIT_EXPERTS)
+        qctx = LlamaContext(load_model(path), n_ctx=16, device="cpu")
+        qctx.eval_tokens([1, 2, 3])
+        assert np.isfinite(qctx.eval_tokens([4])).all()
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)
@@ -201,7 +210,7 @@ def test_wrappers_take_plain_version_on_cpu():
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
     before = dict(LAUNCHES)
     for kind in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
-                 GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
+                 GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K):
         w = synth_qtensor(rng, kind, (64, 256))
         x = t(3, 256)
         assert torch.equal(qmm(x, w), qmm_plain(x, w))

@@ -256,7 +256,7 @@ def test_loader_refuses_unported_tensors(tmp_path, monkeypatch):
                       head_dim=32, n_ff=128, n_vocab=300, n_ctx_train=64,
                       rope=RopeParams(n_dims=32))
     base = synth.GGUFWriter
-    for extra, after, row in (("blk.0.attn_q.bias", "blk.0.attn_norm.weight", "A3"),
+    for extra, after, row in (("blk.0.attn_post_norm.weight", "blk.0.attn_norm.weight", "A3"),
                               ("blk.1.ffn_down.bias", "blk.1.attn_norm.weight", "A3"),
                               ("output.bias", "output_norm.weight", "A3"),
                               ("blk.1.ssm_a", "blk.1.attn_norm.weight", "A8")):

@@ -66,7 +66,8 @@ def _stack(rng, kind, e, n, k, scale=0.1):
                                                                   (e, n, k))
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K])
+@pytest.mark.parametrize("kind", [GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K,
+                                  GGMLType.Q4_K, GGMLType.Q6_K])
 def test_qmm_expert_rows_plain_matches_jax_kernel(kind):
     rng = np.random.default_rng(int(kind))
     e, n, k = 4, 128, 256

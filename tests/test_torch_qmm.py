@@ -30,7 +30,7 @@ from llama_cpp_dsp_tpu_torch.ops.qtensor import PACKED_KINDS, from_gguf_tensor
 from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
 
 KINDS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
-         GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
+         GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]
 NMSE_TOL = 5e-4
 K_OFF_GRID = 352  # 11 blocks of 32: not a multiple of 256
 SMALL_BLOCK_KINDS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0]
