@@ -103,23 +103,25 @@ __device__ __forceinline__ void warp_row_dot(const uint8_t* qs, const __half* d,
     for (int b = 0; b < NB; ++b) out[b] = warp_sum(acc[b]);
 }
 
-// One online-softmax step: fold score s with value vector v (4 dims per
+// One online-softmax step: fold score s with value vector v (N dims per
 // lane), the value term taken as (p·vscale)·v — vscale is a q8 row's scale,
 // 1 for a bf16 row (p·1 is p exactly).
-__device__ __forceinline__ void softmax_step(float s, const float v[4], float vscale, float& m,
-                                             float& l, float acc[4]) {
+template <int N>
+__device__ __forceinline__ void softmax_step(float s, const float (&v)[N], float vscale,
+                                             float& m, float& l, float (&acc)[N]) {
     const float m_new = fmaxf(m, s);
     const float alpha = expf(m - m_new);  // m = -inf on the first step → 0
     const float p = expf(s - m_new);
     l = l * alpha + p;
     const float pv = p * vscale;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = acc[i] * alpha + pv * v[i];
+    for (int i = 0; i < N; ++i) acc[i] = acc[i] * alpha + pv * v[i];
     m = m_new;
 }
 
-__device__ __forceinline__ void softmax_step(float s, const float v[4], float& m, float& l,
-                                             float acc[4]) {
+template <int N>
+__device__ __forceinline__ void softmax_step(float s, const float (&v)[N], float& m, float& l,
+                                             float (&acc)[N]) {
     softmax_step(s, v, 1.f, m, l, acc);
 }
 

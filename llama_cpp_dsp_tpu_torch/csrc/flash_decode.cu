@@ -44,16 +44,17 @@
 // layouts and are not carried over; any even capacity works. PAGED
 // addresses row r of slot b through page tables[b, r / ps] (an entry ≥ P
 // is clamped to P-1; blocks at or past the length are never read), so a
-// split is a run of whole pages and any page size works. D = 128 only (the
-// wrappers check).
+// split is a run of whole pages and any page size works. The head width D
+// is a template parameter, 128 or 256 (Gemma): a lane holds V = D / 32
+// consecutive dims of q, of each K / V row and of acc (16 bytes of a bf16
+// row at D = 256), and a Q4 lane's dims fall in group lane·V / 32; other
+// widths are refused (cudaErrorInvalidValue; the wrappers check first).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int G = D / 32;  // Q4 scale groups per row
 constexpr int WARPS = 4;
 
 // element type of the cached rows (the C entries' `dtype` codes 0-2)
@@ -90,85 +91,110 @@ __device__ __forceinline__ size_t row_index(const DecodeArgs& a, int b, int hk, 
     return ((size_t)b * a.Hkv + hk) * a.S + row;
 }
 
-// 4 consecutive K or V elements of a row → f32 (exact)
-template <int R>
-__device__ __forceinline__ void load4(const void* base, size_t off, float out[4]) {
-    if constexpr (R == I8) {
-        const uint32_t u = *reinterpret_cast<const uint32_t*>(
-            static_cast<const int8_t*>(base) + off);
+// N consecutive K or V elements of a row → f32 (exact); N is 4 or 8
+template <int R, int N>
+__device__ __forceinline__ void load_row(const void* base, size_t off, float (&out)[N]) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) out[i] = (float)(int8_t)((u >> (8 * i)) & 0xffu);
-    } else if constexpr (R == F16) {
-        const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const __half*>(base) + off);
-        const uint32_t w[2] = {u.x, u.y};
+    for (int h = 0; h < N / 4; ++h) {
+        const size_t o = off + 4 * h;
+        if constexpr (R == I8) {
+            const uint32_t u = *reinterpret_cast<const uint32_t*>(
+                static_cast<const int8_t*>(base) + o);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            out[i] = __half2float(__ushort_as_half((unsigned short)(w[i / 2] >> (16 * (i % 2)))));
+            for (int i = 0; i < 4; ++i) out[4 * h + i] = (float)(int8_t)((u >> (8 * i)) & 0xffu);
+        } else if constexpr (R == F16) {
+            const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const __half*>(base) + o);
+            const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                out[4 * h + i] = __half2float(
+                    __ushort_as_half((unsigned short)(w[i / 2] >> (16 * (i % 2)))));
+            }
+        } else if constexpr (R == F32) {
+            const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + o);
+            out[4 * h] = f.x;
+            out[4 * h + 1] = f.y;
+            out[4 * h + 2] = f.z;
+            out[4 * h + 3] = f.w;
+        } else {
+            float f[4];
+            load_bf16x4(static_cast<const __nv_bfloat16*>(base) + o, f);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) out[4 * h + i] = f[i];
         }
-    } else if constexpr (R == F32) {
-        const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
-        out[0] = f.x;
-        out[1] = f.y;
-        out[2] = f.z;
-        out[3] = f.w;
-    } else {
-        load_bf16x4(static_cast<const __nv_bfloat16*>(base) + off, out);
     }
+}
+
+template <int N>
+__device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) s = fmaf(a[i], b[i], s);
+    return s;
 }
 
 // The rows [lo, hi) of (slot b, kv head hk) folded into one query head's
 // online softmax (m, l, acc) — every layout but Q4.
-template <int R, bool PAGED>
+template <int R, bool PAGED, int D>
 __device__ __forceinline__ void fold_rows(const DecodeArgs& a, int b, int hk, int lo, int hi,
-                                          int warp, int lane, const float qv[4], float& m,
-                                          float& l, float acc[4]) {
+                                          int warp, int lane, const float (&qv)[D / 32],
+                                          float& m, float& l, float (&acc)[D / 32]) {
+    constexpr int V = D / 32;
     for (int row = lo + warp; row < hi; row += WARPS) {
         const size_t idx = row_index<PAGED>(a, b, hk, row);
-        float kf[4], vf[4];
-        load4<R>(a.k, idx * D + lane * 4, kf);
-        load4<R>(a.v, idx * D + lane * 4, vf);
-        float s = qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3];
-        s = warp_sum(s);
+        float kf[V], vf[V];
+        load_row<R>(a.k, idx * D + lane * V, kf);
+        load_row<R>(a.v, idx * D + lane * V, vf);
+        float s = warp_sum(dot(qv, kf));
         if (R == I8) s *= a.kd[idx];
         if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
         softmax_step(s, vf, R == I8 ? a.vd[idx] : 1.f, m, l, acc);
     }
 }
 
-// The Q4 form: a warp takes byte row j (cache rows 2j, 2j+1) per step.
+// The Q4 form: a warp takes byte row j (cache rows 2j, 2j+1) per step; a
+// lane reads the V bytes of its dims (both rows) and the scales of its dims'
+// group at the two parity planes.
+template <int D>
 __device__ __forceinline__ void fold_rows_q4(const DecodeArgs& a, int b, int hk, int lo, int hi,
-                                             int warp, int lane, const float qv[4], float& m,
-                                             float& l, float acc[4]) {
+                                             int warp, int lane, const float (&qv)[D / 32],
+                                             float& m, float& l, float (&acc)[D / 32]) {
+    constexpr int V = D / 32, G = D / 32;  // dims a lane holds; scale groups a row
     const int s2 = a.S / 2;
     const size_t bh = (size_t)b * a.Hkv + hk;
-    const uint8_t* kq = static_cast<const uint8_t*>(a.k) + bh * s2 * D + lane * 4;
-    const uint8_t* vq = static_cast<const uint8_t*>(a.v) + bh * s2 * D + lane * 4;
-    const float* kd = a.kd + (bh * 2 * G + (lane >> 3)) * s2;  // group lane/8, parity 0
-    const float* vd = a.vd + (bh * 2 * G + (lane >> 3)) * s2;
+    const uint8_t* kq = static_cast<const uint8_t*>(a.k) + bh * s2 * D + lane * V;
+    const uint8_t* vq = static_cast<const uint8_t*>(a.v) + bh * s2 * D + lane * V;
+    const float* kd = a.kd + (bh * 2 * G + lane * V / 32) * s2;  // the lane's group, parity 0
+    const float* vd = a.vd + (bh * 2 * G + lane * V / 32) * s2;
     for (int j = (lo >> 1) + warp; 2 * j < hi; j += WARPS) {
-        const uint32_t kb = *reinterpret_cast<const uint32_t*>(kq + (size_t)j * D);
-        const uint32_t vb = *reinterpret_cast<const uint32_t*>(vq + (size_t)j * D);
+        uint32_t kb[V / 4], vb[V / 4];
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+            kb[h] = *reinterpret_cast<const uint32_t*>(kq + (size_t)j * D + 4 * h);
+            vb[h] = *reinterpret_cast<const uint32_t*>(vq + (size_t)j * D + 4 * h);
+        }
 #pragma unroll
         for (int par = 0; par < 2; ++par) {
             const int row = 2 * j + par;
             if (row < lo || row >= hi) continue;  // the same for the whole warp
-            float kf[4], vf[4];
+            float kf[V], vf[V];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                kf[i] = (float)((int)((kb >> (8 * i + 4 * par)) & 15u) - 8);
-                vf[i] = (float)((int)((vb >> (8 * i + 4 * par)) & 15u) - 8);
+            for (int i = 0; i < V; ++i) {
+                const int sh = 8 * (i % 4) + 4 * par;
+                kf[i] = (float)((int)((kb[i / 4] >> sh) & 15u) - 8);
+                vf[i] = (float)((int)((vb[i / 4] >> sh) & 15u) - 8);
             }
             const size_t sc = (size_t)par * G * s2 + j;
-            float s = (qv[0] * kf[0] + qv[1] * kf[1] + qv[2] * kf[2] + qv[3] * kf[3]) * kd[sc];
-            s = warp_sum(s);
+            float s = warp_sum(dot(qv, kf) * kd[sc]);
             if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
             softmax_step(s, vf, vd[sc], m, l, acc);
         }
     }
 }
 
-template <int R, bool PAGED>
+template <int R, bool PAGED, int D>
 __global__ void __launch_bounds__(WARPS * 32) decode_split(const DecodeArgs a) {
+    constexpr int V = D / 32;
     const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int rep = a.H / a.Hkv;
@@ -183,48 +209,61 @@ __global__ void __launch_bounds__(WARPS * 32) decode_split(const DecodeArgs a) {
 
     for (int r = 0; r < rep; ++r) {
         const int head = hk * rep + r;
-        const float4 q4 =
-            *reinterpret_cast<const float4*>(a.q + ((size_t)b * a.H + head) * D + lane * 4);
-        const float qv[4] = {q4.x * a.scale, q4.y * a.scale, q4.z * a.scale, q4.w * a.scale};
-        float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+        float qv[V], m = -INFINITY, l = 0.f, acc[V];
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+            const float4 q4 = *reinterpret_cast<const float4*>(
+                a.q + ((size_t)b * a.H + head) * D + lane * V + 4 * h);
+            qv[4 * h] = q4.x * a.scale;
+            qv[4 * h + 1] = q4.y * a.scale;
+            qv[4 * h + 2] = q4.z * a.scale;
+            qv[4 * h + 3] = q4.w * a.scale;
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = 0.f;
         if constexpr (R == Q4) {
-            fold_rows_q4(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
+            fold_rows_q4<D>(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
         } else {
-            fold_rows<R, PAGED>(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
+            fold_rows<R, PAGED, D>(a, b, hk, lo, hi, warp, lane, qv, m, l, acc);
         }
         if (lane == 0) {
             sm_m[warp] = m;
             sm_l[warp] = l;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sm_acc[warp][lane * 4 + i] = acc[i];
+        for (int i = 0; i < V; ++i) sm_acc[warp][lane * V + i] = acc[i];
         __syncthreads();
-        {  // merge the warps: thread t owns dim t
-            const int t = threadIdx.x;
-            float mm = -INFINITY;
+        float mm = -INFINITY;
 #pragma unroll
-            for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, sm_m[w]);
-            float ll = 0.f, aa = 0.f;
+        for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, sm_m[w]);
+        float ll = 0.f;
+        if (mm != -INFINITY) {
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) {
+                if (sm_m[w] != -INFINITY) ll += sm_l[w] * expf(sm_m[w] - mm);
+            }
+        }
+        const size_t slot = ((size_t)b * a.H + head) * a.n_splits + split;
+        // merge the warps: thread t owns dims t, t + 128, ...
+        for (int t = threadIdx.x; t < D; t += WARPS * 32) {
+            float aa = 0.f;
             if (mm != -INFINITY) {
 #pragma unroll
                 for (int w = 0; w < WARPS; ++w) {
-                    if (sm_m[w] == -INFINITY) continue;
-                    const float e = expf(sm_m[w] - mm);
-                    ll += sm_l[w] * e;
-                    aa += sm_acc[w][t] * e;
+                    if (sm_m[w] != -INFINITY) aa += sm_acc[w][t] * expf(sm_m[w] - mm);
                 }
             }
-            const size_t slot = ((size_t)b * a.H + head) * a.n_splits + split;
             a.ws_acc[slot * D + t] = aa;
-            if (t == 0) {
-                a.ws_ml[slot * 2] = mm;
-                a.ws_ml[slot * 2 + 1] = ll;
-            }
+        }
+        if (threadIdx.x == 0) {
+            a.ws_ml[slot * 2] = mm;
+            a.ws_ml[slot * 2 + 1] = ll;
         }
         __syncthreads();
     }
 }
 
+template <int D>
 __global__ void __launch_bounds__(D)
 flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
                    float* __restrict__ out, int n_splits) {
@@ -246,24 +285,34 @@ flash_decode_merge(const float* __restrict__ ws_acc, const float* __restrict__ w
     out[bh * D + t] = aa / fmaxf(ll, 1e-30f);
 }
 
-template <int R, bool PAGED>
-int launch(const DecodeArgs& a, void* out, int B, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    decode_split<R, PAGED><<<dim3(a.n_splits, a.Hkv, B), WARPS * 32, 0, st>>>(a);
+template <int R, bool PAGED, int D>
+int launch_d(const DecodeArgs& a, void* out, int B, cudaStream_t st) {
+    decode_split<R, PAGED, D><<<dim3(a.n_splits, a.Hkv, B), WARPS * 32, 0, st>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    flash_decode_merge<<<dim3(a.H, B), D, 0, st>>>(a.ws_acc, a.ws_ml, static_cast<float*>(out),
-                                                   a.n_splits);
+    flash_decode_merge<D><<<dim3(a.H, B), D, 0, st>>>(a.ws_acc, a.ws_ml,
+                                                      static_cast<float*>(out), a.n_splits);
     return (int)cudaGetLastError();
+}
+
+// the instantiation for head width D (128 or 256)
+template <int R, bool PAGED>
+int launch(const DecodeArgs& a, int D, void* out, int B, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (D) {
+        case 128: return launch_d<R, PAGED, 128>(a, out, B, st);
+        case 256: return launch_d<R, PAGED, 256>(a, out, B, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // a dense layout of element type `dtype` (RowType 0-2)
 template <bool PAGED>
-int launch_dense(const DecodeArgs& a, int dtype, void* out, int B, void* stream) {
+int launch_dense(const DecodeArgs& a, int dtype, int D, void* out, int B, void* stream) {
     switch (dtype) {
-        case BF16: return launch<BF16, PAGED>(a, out, B, stream);
-        case F16: return launch<F16, PAGED>(a, out, B, stream);
-        case F32: return launch<F32, PAGED>(a, out, B, stream);
+        case BF16: return launch<BF16, PAGED>(a, D, out, B, stream);
+        case F16: return launch<F16, PAGED>(a, D, out, B, stream);
+        case F32: return launch<F32, PAGED>(a, D, out, B, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -300,46 +349,48 @@ DecodeArgs make_args(const void* q, const void* k, const void* kd, const void* v
 
 // In every entry: q f32 [B,H,D]; lengths, starts int32 [B] (starts may be
 // null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
-// [B*H*n_splits*2] scratch. D must be 128.
+// [B*H*n_splits*2] scratch. D is 128 or 256.
 
 // k, v [B,Hkv,S,D] of element type dtype (0 bf16, 1 f16, 2 f32);
 // n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode(const void* q, const void* k, const void* v, const void* lengths,
                              const void* starts, void* out, void* ws_acc, void* ws_ml, int B,
-                             int H, int Hkv, int S, int chunk, int dtype, float scale,
+                             int H, int Hkv, int D, int S, int chunk, int dtype, float scale,
                              float softcap, void* stream) {
     const int n_splits = (S + chunk - 1) / chunk;
     return launch_dense<false>(make_args(q, k, nullptr, v, nullptr, nullptr, lengths, starts,
                                          ws_acc, ws_ml, H, Hkv, S, 0, 0, chunk, n_splits,
                                          scale, softcap),
-                               dtype, out, B, stream);
+                               dtype, D, out, B, stream);
 }
 
 // kq, vq int8 [B,Hkv,S,D]; kd, vd f32 [B,Hkv,1,S]; n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode_q8(const void* q, const void* kq, const void* kd, const void* vq,
                                 const void* vd, const void* lengths, const void* starts,
                                 void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
-                                int S, int chunk, float scale, float softcap, void* stream) {
+                                int D, int S, int chunk, float scale, float softcap,
+                                void* stream) {
     const int n_splits = (S + chunk - 1) / chunk;
     return launch<I8, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
                                        ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
                                        softcap),
-                             out, B, stream);
+                             D, out, B, stream);
 }
 
 // kq, vq u8 [B,Hkv,S/2,D] row pairs; kd, vd f32 [B,Hkv,2G,S/2] parity-major
-// group scales; S (the capacity in rows) even and chunk even;
+// group scales (G = D/32); S (the capacity in rows) even and chunk even;
 // n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode_q4(const void* q, const void* kq, const void* kd, const void* vq,
                                 const void* vd, const void* lengths, const void* starts,
                                 void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
-                                int S, int chunk, float scale, float softcap, void* stream) {
+                                int D, int S, int chunk, float scale, float softcap,
+                                void* stream) {
     if (S % 2 || chunk % 2) return (int)cudaErrorInvalidValue;
     const int n_splits = (S + chunk - 1) / chunk;
     return launch<Q4, false>(make_args(q, kq, kd, vq, vd, nullptr, lengths, starts, ws_acc,
                                        ws_ml, H, Hkv, S, 0, 0, chunk, n_splits, scale,
                                        softcap),
-                             out, B, stream);
+                             D, out, B, stream);
 }
 
 // k, v pools [P,Hkv,ps,D] of element type dtype (0 bf16, 1 f16, 2 f32);
@@ -348,25 +399,26 @@ KERNELS_API int flash_decode_q4(const void* q, const void* kq, const void* kd, c
 KERNELS_API int flash_decode_paged(const void* q, const void* k, const void* v,
                                    const void* tables, const void* lengths, const void* starts,
                                    void* out, void* ws_acc, void* ws_ml, int B, int H, int Hkv,
-                                   int ps, int max_blocks, int n_pages, int pages_per_split,
-                                   int dtype, float scale, float softcap, void* stream) {
+                                   int D, int ps, int max_blocks, int n_pages,
+                                   int pages_per_split, int dtype, float scale, float softcap,
+                                   void* stream) {
     const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
     return launch_dense<true>(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts,
                                         ws_acc, ws_ml, H, Hkv, ps, max_blocks, n_pages,
                                         pages_per_split * ps, n_splits, scale, softcap),
-                              dtype, out, B, stream);
+                              dtype, D, out, B, stream);
 }
 
 // kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables as above.
 KERNELS_API int flash_decode_paged_q8(const void* q, const void* kq, const void* kd,
                                       const void* vq, const void* vd, const void* tables,
                                       const void* lengths, const void* starts, void* out,
-                                      void* ws_acc, void* ws_ml, int B, int H, int Hkv, int ps,
-                                      int max_blocks, int n_pages, int pages_per_split,
+                                      void* ws_acc, void* ws_ml, int B, int H, int Hkv, int D,
+                                      int ps, int max_blocks, int n_pages, int pages_per_split,
                                       float scale, float softcap, void* stream) {
     const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
     return launch<I8, true>(make_args(q, kq, kd, vq, vd, tables, lengths, starts, ws_acc,
                                       ws_ml, H, Hkv, ps, max_blocks, n_pages,
                                       pages_per_split * ps, n_splits, scale, softcap),
-                            out, B, stream);
+                            D, out, B, stream);
 }

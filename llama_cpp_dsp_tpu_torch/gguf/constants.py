@@ -211,6 +211,10 @@ class Keys:
         ATTN_VALUE_LENGTH = "{arch}.attention.value_length"
         VOCAB_SIZE = "{arch}.vocab_size"
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
+        # gemma2 (the JAX package reads these as string literals:
+        # models/registry.py::_gemma2)
+        ATTN_LOGIT_SOFTCAPPING = "{arch}.attn_logit_softcapping"
+        FINAL_LOGIT_SOFTCAPPING = "{arch}.final_logit_softcapping"
         SSM_CONV_KERNEL = "{arch}.ssm.conv_kernel"
         SSM_INNER_SIZE = "{arch}.ssm.inner_size"
         SSM_STATE_SIZE = "{arch}.ssm.state_size"

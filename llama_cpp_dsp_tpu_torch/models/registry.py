@@ -1,7 +1,7 @@
 """GGUF metadata → LlamaConfig (counterpart of the JAX package's
 models/registry.py, cut down to the architectures the port runs: `llama`,
 `mistral`, the Qwen family (`qwen2`, `qwen2moe`, `qwen3`, `qwen3moe`),
-`phi3` and `deepseek2`).
+`phi3`, `deepseek2` and the Gemma family (`gemma`, `gemma2`, `gemma3`)).
 
 Per-architecture flags come from an override function, applied last, as
 the JAX registry applies its `ArchSpec.overrides`; the rope mode is NEOX for
@@ -12,6 +12,7 @@ A3).
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
@@ -64,6 +65,30 @@ def _qwen3moe(get) -> dict:
             "moe_norm_weights": bool(get(Keys.LLM.EXPERT_WEIGHTS_NORM, True))}
 
 
+def _gemma(get) -> dict:
+    """llm_build_gemma (JAX registry.py::_gemma): GeGLU FFN, the LM head
+    tied to token_embd, the embeddings scaled by √n_embd."""
+    return {"act": "gelu", "tie_embeddings": True,
+            "embd_scale": math.sqrt(int(get(Keys.LLM.EMBEDDING_LENGTH)))}
+
+
+def _gemma2(get) -> dict:
+    """llm_build_gemma2 (JAX registry.py::_gemma2): post norms, attention
+    and final logit softcaps, a sliding window on every other layer."""
+    return {**_gemma(get), "post_norms": True,
+            "attn_logit_softcap": float(get(Keys.LLM.ATTN_LOGIT_SOFTCAPPING, 50.0)),
+            "final_logit_softcap": float(get(Keys.LLM.FINAL_LOGIT_SOFTCAPPING, 30.0)),
+            "swa_window": int(get(Keys.LLM.SLIDING_WINDOW, 4096) or 0), "swa_pattern": 2}
+
+
+def _gemma3(get) -> dict:
+    """llm_build_gemma3 (JAX registry.py::_gemma3): post norms, q/k norm, a
+    sliding window on five layers of six, whose rope takes base 1e4."""
+    return {**_gemma(get), "post_norms": True, "qk_norm": True,
+            "swa_window": int(get(Keys.LLM.SLIDING_WINDOW, 1024) or 0), "swa_pattern": 6,
+            "rope_local_base": 10000.0}
+
+
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
@@ -83,13 +108,17 @@ ARCHS: dict[str, ArchSpec] = {spec.name: spec for spec in (
     ArchSpec("qwen3moe", _qwen3moe),
     ArchSpec("phi3", fused_qkv=True, fused_gate_up=True),
     ArchSpec("deepseek2", _deepseek2),
+    ArchSpec("gemma", _gemma),
+    ArchSpec("gemma2", _gemma2),
+    ArchSpec("gemma3", _gemma3),
 )}
 
 # llama_model_rope_type's NEOX list (JAX registry.py::_NEOX_ROPE_ARCHS, cut
 # down to the port's archs): every other arch rotates NORM (interleaved
 # pairs). The wrong mode moves a tiny model's logits by only ~1e-3, below
 # loose tolerances, so the tests pin it.
-_NEOX_ROPE_ARCHS = {"qwen2", "qwen2moe", "qwen3", "qwen3moe", "phi3"}
+_NEOX_ROPE_ARCHS = {"qwen2", "qwen2moe", "qwen3", "qwen3moe", "phi3", "gemma", "gemma2",
+                    "gemma3"}
 
 
 def arch_spec(arch: str) -> ArchSpec:

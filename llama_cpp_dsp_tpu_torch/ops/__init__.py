@@ -51,8 +51,28 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return (xf * torch.sigmoid(xf)).to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh form, in f32 and cast back (JAX jax.nn.gelu approximate=True)."""
+    return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated FFN's activation by name (JAX models/llama.py::activate)."""
+    if act == "silu":
+        return silu(x)
+    if act == "gelu":
+        return gelu(x)
+    raise ValueError(f"activation {act!r}: the port has silu and gelu")
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Logit soft-capping, cap·tanh(x / cap) (gemma2's scores and logits)."""
+    return torch.tanh(x / cap) * cap
+
+
 def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim)
 
 
-__all__ = ["QTensor", "dequant", "qmm", "rms_norm", "silu", "softmax_f32", "take_rows"]
+__all__ = ["QTensor", "activate", "dequant", "gelu", "qmm", "rms_norm", "silu", "softcap",
+           "softmax_f32", "take_rows"]

@@ -34,6 +34,7 @@ LAUNCHES: dict[str, int] = {
     "flash_decode_q4": 0,
     "flash_decode_paged": 0,
     "flash_decode_paged_q8": 0,
+    "flash_prefill": 0,
     "attn_fused": 0,
     "mla_decode": 0,
 }

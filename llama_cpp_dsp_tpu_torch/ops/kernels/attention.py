@@ -1,26 +1,32 @@
-"""Decode attention (T=1) over the KV caches: dense rows of bf16, f16 or f32
-(`flash_decode`), Q8_0 rows (`flash_decode_q8`), Q4_0 row pairs
+"""Attention over the KV caches: decode (T=1) over dense rows of bf16, f16 or
+f32 (`flash_decode`), Q8_0 rows (`flash_decode_q8`), Q4_0 row pairs
 (`flash_decode_q4`), dense pages (`flash_decode_paged`) and Q8_0 pages
-(`flash_decode_paged_q8`); and DeepSeek-V2's latent attention over an MLA
-cache (`mla_flash_decode`, csrc/mla_decode.cu).
+(`flash_decode_paged_q8`); causal prefill (T>1) over dense rows
+(`flash_prefill`, csrc/flash_prefill.cu); and DeepSeek-V2's latent
+attention over an MLA cache (`mla_flash_decode`, csrc/mla_decode.cu).
 
 Counterpart of the JAX package's ops/pallas/attention.py entries of the same
-names. All five run one templated CUDA kernel (csrc/flash_decode.cu):
-split-S flash decoding with a log-sum-exp merge of the splits. A q8 score
+names. The five decode entries run one templated CUDA kernel
+(csrc/flash_decode.cu): split-S flash decoding with a log-sum-exp merge of
+the splits. A q8 score
 is (q·kq)·kd[row] and a q8 value term (p·vd[row])·vq, as the TPU kernels
 fold the row scales; a q4 score sums kd[row, g]·(q·(k − 8)) over the 32-wide
 groups g and its value term folds vd[row, g] the same way; no cache is
 dequantized into a buffer. A paged split is a run of pages read through the
 block table. Where K and V come in two dense types, both are taken in f32
-(exact: the kernel converts every element to f32 as it loads it).
+(exact: the kernel converts every element to f32 as it loads it). The
+decode and prefill kernels take head widths 128 and 256 (`HEAD_DIMS`); a
+CUDA tensor of another width raises (ROADMAP.md queue B, item 5), and the
+model sends such layers (TinyLlama's 64) to the plain attention.
 
 Tolerances against the JAX kernels (plain versions, CPU): atol 2e-5 with
 f32 inputs and 2e-3 with a bf16 cache (tests/test_flash_attention.py), 1e-5
 for the q8, q4 and paged forms (tests/test_quant_kv.py,
-tests/test_torch_q4_kv.py, tests/test_paged_kv.py); sums are taken in
-another order. Kernel against plain version on the card (chip_smoke.py):
-per-slot NMSE ≤ 1e-8, which a dropped cache row exceeds; the same limit for
-`mla_flash_decode`.
+tests/test_torch_q4_kv.py, tests/test_paged_kv.py), 2e-5 for prefill;
+sums are taken in another order. Kernel against plain version on the card
+(chip_smoke.py): per-slot NMSE ≤ 1e-8, which a dropped cache row (decode)
+or a window or causal bound one row off (prefill) exceeds; the same limit
+for `mla_flash_decode`.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from __future__ import annotations
 import torch
 
 from ...quant.kv_planes import q4_deq_plane
+from .. import softcap as apply_softcap
 from . import LAUNCHES, aligned16, stream_handle
 
 SPLIT_ROWS = 64  # cache rows per split (one block per split, kv head and slot)
-HEAD_DIM = 128
+HEAD_DIMS = (128, 256)  # the kernels' head widths (Llama / Qwen / Mixtral; Gemma)
+_WIDTH_ROW = "ROADMAP.md queue B, item 5"
 _Q8_DTYPES = (torch.int8, torch.float32, torch.int8, torch.float32)
 _Q4_DTYPES = (torch.uint8, torch.float32, torch.uint8, torch.float32)
 _ROW_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # the C entries' codes
@@ -42,7 +50,7 @@ def _softmax_out(sc, v, lengths, starts, softcap, vscale=None):
     [B,Hkv,1,S] folds a q8 row scale into the probabilities."""
     b, hkv, rep, s = sc.shape
     if softcap:
-        sc = torch.tanh(sc / softcap) * softcap
+        sc = apply_softcap(sc, softcap)
     j = torch.arange(s, device=sc.device)
     st = torch.zeros_like(lengths) if starts is None else starts
     valid = (j[None, :] < lengths[:, None]) & (j[None, :] >= st[:, None])
@@ -124,9 +132,9 @@ def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int
 
     b, h, d = q.shape
     hkv = planes[0].shape[1]
-    if d != HEAD_DIM or planes[0].shape[-1] != d or h % hkv or lengths.shape != (b,):
+    if d not in HEAD_DIMS or planes[0].shape[-1] != d or h % hkv or lengths.shape != (b,):
         raise ValueError(f"{name}: q {tuple(q.shape)} cache {tuple(planes[0].shape)}: needs "
-                         f"D={HEAD_DIM} and H % Hkv == 0")
+                         f"D in {HEAD_DIMS} ({_WIDTH_ROW}) and H % Hkv == 0")
     for t, want in zip(planes, dtypes):
         if t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: cache operand {t.dtype}{tuple(t.shape)} must be "
@@ -143,7 +151,7 @@ def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int
     ws_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in (qf, *planes, *tb, ln)]
     rc = getattr(lib(), name)(*ptrs, None if st is None else st.data_ptr(), out.data_ptr(),
-                              ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, hkv, *tail,
+                              ws_acc.data_ptr(), ws_ml.data_ptr(), b, h, hkv, d, *tail,
                               float(scale), float(softcap), stream_handle(q))
     check(rc, name)
     LAUNCHES[name] += 1
@@ -252,6 +260,80 @@ def flash_decode_paged_q8(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None,
     n_splits, tail = _paged_tail("flash_decode_paged_q8", k_qs, tables, q)
     return _launch("flash_decode_paged_q8", q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, tables,
                    lengths, starts, n_splits, tail, scale, softcap)
+
+
+# ---------------------------------------------------------------------------
+# Causal prefill (T > 1) over a dense cache
+# ---------------------------------------------------------------------------
+
+def attention_plain(q, k, v, mask, scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """Masked multi-head attention, f32 softmax and accumulation (JAX
+    models/llama.py::attention). q [B,T,H,D] (roped), k/v [B,Hkv,S,D], mask
+    [B,T,S] bool (None: every row) → [B,T,H*D] f32."""
+    b, t, h, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, t, hkv, h // hkv, d)
+    scores = torch.einsum("bthrd,bhsd->bhrts", qf, k.float()) * scale
+    if softcap:
+        scores = apply_softcap(scores, softcap)
+    if mask is not None:
+        bias = torch.where(mask, 0.0, torch.finfo(torch.float32).min)
+        scores = scores + bias[:, None, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrts,bhsd->bthrd", probs, v.float())
+    return out.reshape(b, t, h * d)
+
+
+def flash_prefill_plain(q, k, v, n_past, *, scale: float, softcap: float = 0.0,
+                        swa_window: int = 0, attn_chunk: int = 0) -> torch.Tensor:
+    """q [B,T,H,D], k/v [B,Hkv,S,D], n_past [B] → [B,T,H,D] f32: query t of
+    slot b at position n_past[b] + t over the rows `causal_mask` gives it
+    (the causal, window and chunk rules)."""
+    from ...runtime.kv_cache import causal_mask
+
+    b, t, h, d = q.shape
+    n_past = n_past.to(device=q.device, dtype=torch.int32)
+    pos = n_past[:, None] + torch.arange(t, dtype=torch.int32, device=q.device)
+    mask = causal_mask(pos, k.shape[2], n_past, swa_window, attn_chunk)
+    return attention_plain(q, k, v, mask, scale, softcap).reshape(b, t, h, d)
+
+
+def flash_prefill(q, k, v, n_past, *, scale: float, softcap: float = 0.0,
+                  swa_window: int = 0, attn_chunk: int = 0) -> torch.Tensor:
+    """Causal prefill attention (JAX ops/pallas/attention.py::flash_prefill):
+    q [B,T,H,D] (roped, taken in f32), k/v [B,Hkv,S,D] of bf16, f16 or f32
+    (rows [0, n_past + T) written), n_past [B] int32 → [B,T,H,D] f32. Query t
+    attends rows j ≤ n_past + t, and j > n_past + t − swa_window (swa_window >
+    0) or j ≥ ⌊(n_past + t) / attn_chunk⌋·attn_chunk (attn_chunk > 0); rows past
+    n_past + T are never read."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, n_past, scale=scale, softcap=softcap,
+                                   swa_window=swa_window, attn_chunk=attn_chunk)
+    from .build import check, lib
+
+    b, t, h, d = q.shape
+    k, v, code = _row_type("flash_prefill", k, v)
+    if (d not in HEAD_DIMS or k.shape != v.shape or k.dim() != 4 or k.shape[0] != b
+            or k.shape[3] != d or h % k.shape[1] or n_past.shape != (b,)):
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} n_past {tuple(n_past.shape)}: needs D in "
+                         f"{HEAD_DIMS} ({_WIDTH_ROW}), H % Hkv == 0 and n_past [B]")
+    for x in (k, v):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("flash_prefill: k and v must be contiguous and 16-byte aligned")
+    for x in (k, v, n_past):
+        if x.device != q.device:
+            raise ValueError(f"flash_prefill: tensors on {x.device} and {q.device}")
+    qf = aligned16(q.float().contiguous())
+    np_ = n_past.to(torch.int32).contiguous()
+    out = torch.empty(b, t, h, d, dtype=torch.float32, device=q.device)
+    rc = lib().flash_prefill(qf.data_ptr(), k.data_ptr(), v.data_ptr(), np_.data_ptr(),
+                             out.data_ptr(), b, t, h, k.shape[1], d, k.shape[2], code,
+                             int(swa_window), int(attn_chunk), float(scale), float(softcap),
+                             stream_handle(q))
+    check(rc, "flash_prefill")
+    LAUNCHES["flash_prefill"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

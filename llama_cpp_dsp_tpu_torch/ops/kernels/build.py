@@ -52,13 +52,15 @@ _SIGNATURES = {
     "qmm_experts_q4_k": [_P] * 8 + [_I] * 4 + [_P],
     "qmm_experts_q5_k": [_P] * 9 + [_I] * 4 + [_P],
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],
-    # q, k, v, lengths, starts, out, ws_acc, ws_ml; B, H, Hkv, S, chunk, row type
-    "flash_decode": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    "flash_decode_q8": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    "flash_decode_q4": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    # ... tables ...; B, H, Hkv, ps, max_blocks, n_pages, pages_per_split, row type
-    "flash_decode_paged": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
-    "flash_decode_paged_q8": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
+    # q, k, v, lengths, starts, out, ws_acc, ws_ml; B, H, Hkv, D, S, chunk, row type
+    "flash_decode": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    "flash_decode_q8": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    "flash_decode_q4": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    # ... tables ...; B, H, Hkv, D, ps, max_blocks, n_pages, pages_per_split, row type
+    "flash_decode_paged": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
+    "flash_decode_paged_q8": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
+    # q, k, v, n_past, out; B, T, H, Hkv, D, S, row type, window, attn_chunk
+    "flash_prefill": [_P] * 5 + [_I] * 9 + [_F, _F, _P],
     # q, c, lengths, out, ws_acc, ws_ml; B, H, C, r, S, split_rows; scale
     "mla_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
     "attn_fused_q4_0": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -370,14 +370,30 @@ def make_kv_cache(n_layers: int, n_batch: int, n_ctx: int, n_kv_heads: int, head
                           _DENSE_DTYPES[kv_type])
 
 
-def causal_mask(positions: torch.Tensor, n_kv: int, n_past) -> torch.Tensor:
+def window_keep(j: torch.Tensor, pos: torch.Tensor, window: int = 0, chunk: int = 0):
+    """The sliding-window or chunked-attention rule of a layer beside the
+    causal one (JAX models/llama.py:777-787, :844-849): key cell j attends
+    query position pos iff j > pos − window (window > 0), or j ≥
+    ⌊pos / chunk⌋·chunk (chunk > 0). j and pos broadcast; None when the layer
+    has neither."""
+    if chunk:
+        return j >= (pos // chunk) * chunk
+    if window:
+        return j > pos - window
+    return None
+
+
+def causal_mask(positions: torch.Tensor, n_kv: int, n_past, window: int = 0,
+                chunk: int = 0) -> torch.Tensor:
     """[B, T] query positions → [B, T, n_kv] bool mask: key cell j is
-    attendable iff j < n_past + T (written) and j <= the query position.
-    n_past is a scalar or a [B] tensor."""
+    attendable iff j < n_past + T (written), j <= the query position and,
+    on a sliding-window or chunked layer, `window_keep`. n_past is a scalar
+    or a [B] tensor."""
     t = positions.shape[1]
     j = torch.arange(n_kv, device=positions.device)
     if torch.is_tensor(n_past) and n_past.dim() == 1:
         n_past = n_past.to(positions.device)[:, None, None]
-    written = j[None, None, :] < (n_past + t)
-    causal = j[None, None, :] <= positions[:, :, None]
-    return written & causal
+    pos = positions[:, :, None]
+    mask = (j[None, None, :] < (n_past + t)) & (j[None, None, :] <= pos)
+    keep = window_keep(j[None, None, :], pos, window, chunk)
+    return mask if keep is None else mask & keep

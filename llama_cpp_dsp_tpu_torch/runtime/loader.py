@@ -52,6 +52,11 @@ _LAYER_TENSORS = {
     "attn_q_norm.weight": "attn_q_norm",
     "attn_k_norm.weight": "attn_k_norm",
     "ffn_norm.weight": "ffn_norm",
+    # Gemma 2 / 3 post norms, under either of their GGUF names
+    "attn_post_norm.weight": "attn_post_norm",
+    "post_attention_norm.weight": "attn_post_norm",
+    "ffn_post_norm.weight": "ffn_post_norm",
+    "post_ffw_norm.weight": "ffn_post_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
@@ -89,12 +94,10 @@ _GLOBAL_TENSORS = {
 # decoder archs, A8 the other model families (SSM, RWKV, BERT)
 _A3_LAYER = (
     "attn_norm.bias", "attn_norm_2.weight", "attn_norm_2.bias", "attn_output.bias",
-    "attn_q_norm.bias", "attn_k_norm.bias", "attn_post_norm.weight",
-    "post_attention_norm.weight", "attn_sub_norm.weight", "ffn_sub_norm.weight",
+    "attn_q_norm.bias", "attn_k_norm.bias", "attn_sub_norm.weight", "ffn_sub_norm.weight",
     "attn_q.scale", "attn_k.scale", "attn_v.scale", "attn_output.scale", "ffn_gate.scale",
-    "ffn_up.scale", "ffn_down.scale", "ffn_norm.bias", "ffn_post_norm.weight",
-    "post_ffw_norm.weight", "ffn_gate.bias", "ffn_up.bias", "ffn_down.bias",
-    "ffn_norm_exps.weight",
+    "ffn_up.scale", "ffn_down.scale", "ffn_norm.bias", "ffn_gate.bias", "ffn_up.bias",
+    "ffn_down.bias", "ffn_norm_exps.weight",
 )
 _A8_LAYER = (
     "ssm_in.weight", "ssm_conv1d.weight", "ssm_conv1d.bias", "ssm_x.weight", "ssm_dt.weight",

@@ -99,6 +99,32 @@ QWEN3_8B = LlamaConfig(
     n_ff=12288, n_vocab=151936, n_ctx_train=40960, rms_eps=1e-6,
     rope=RopeParams(n_dims=128, mode="neox", freq_base=1000000.0), qk_norm=True,
 )
+# google/gemma-3-12b-it config.json, text part: 48 layers, hidden 3840, 16
+# heads over 8 KV heads of head_dim 256 (query_pre_attn_scalar 256: scale
+# 1/16), intermediate 15360 (GeGLU, tanh GELU), rms eps 1e-6, rope theta 1e6
+# with linear scaling x8 on the full-attention layers and local base 1e4 on
+# the sliding-window ones (window 1024, every 6th layer full), q/k norm,
+# tied embeddings scaled by √3840, max_position_embeddings 131072; vocab the
+# GGUF's 262144 SPM tokens (the HF config's 262208 pads the embedding)
+GEMMA3_12B = LlamaConfig(
+    arch="gemma3", n_layers=48, n_embd=3840, n_heads=16, n_kv_heads=8, head_dim=256,
+    n_ff=15360, n_vocab=262144, n_ctx_train=131072, rms_eps=1e-6,
+    rope=RopeParams(n_dims=256, mode="neox", freq_base=1000000.0, freq_scale=1 / 8),
+    qk_norm=True, act="gelu", tie_embeddings=True, embd_scale=math.sqrt(3840),
+    post_norms=True, swa_window=1024, swa_pattern=6, rope_local_base=10000.0,
+)
+# google/gemma-2-9b-it config.json: 42 layers, hidden 3584, 16 heads over 8
+# KV heads of head_dim 256 (query_pre_attn_scalar 256), intermediate 14336,
+# vocab 256000, rms eps 1e-6, rope theta 1e4, sliding window 4096 on every
+# other layer, attention / final logit softcaps 50 / 30, tied embeddings
+# scaled by √3584, max_position_embeddings 8192
+GEMMA2_9B = LlamaConfig(
+    arch="gemma2", n_layers=42, n_embd=3584, n_heads=16, n_kv_heads=8, head_dim=256,
+    n_ff=14336, n_vocab=256000, n_ctx_train=8192, rms_eps=1e-6,
+    rope=RopeParams(n_dims=256, mode="neox", freq_base=10000.0),
+    act="gelu", tie_embeddings=True, embd_scale=math.sqrt(3584), post_norms=True,
+    attn_logit_softcap=50.0, final_logit_softcap=30.0, swa_window=4096, swa_pattern=2,
+)
 LLAMA2_13B = LlamaConfig(
     arch="llama", n_layers=40, n_embd=5120, n_heads=40, n_kv_heads=40, head_dim=128,
     n_ff=13824, n_vocab=32000, n_ctx_train=4096, rms_eps=1e-5,
@@ -114,16 +140,40 @@ CONFIGS = {
     "deepseek-v2-lite": DEEPSEEK_V2_LITE,
     "qwen2.5-7b": QWEN2_5_7B,
     "qwen3-8b": QWEN3_8B,
+    "gemma3-12b": GEMMA3_12B,
+    "gemma2-9b": GEMMA2_9B,
 }
 
 
 def unit_config(arch: str) -> LlamaConfig:
-    """A unit-size model of `arch` (2 layers, width 256, head_dim 128, two
-    query heads over one KV head, vocab 2048) with the flags its GGUF
-    carries: the Qwen family's rope, q/k norm (qwen3, qwen3moe) and MoE
-    (16 experts top-4, so that no Mixtral-only row of `tensor_type`
-    applies; qwen2moe with a sigmoid-gated shared expert and no
-    renormalisation). Its expert widths are `UNIT_EXPERTS`."""
+    """A unit-size model of `arch` (2 layers, width 256, two query heads over
+    one KV head, vocab 2048) with the flags its GGUF carries: the Qwen
+    family's rope (head_dim 128), q/k norm (qwen3, qwen3moe) and MoE (16
+    experts top-4, so that no Mixtral-only row of `tensor_type` applies;
+    qwen2moe with a sigmoid-gated shared expert and no renormalisation);
+    the Gemma family at head_dim 256, so that the q width (512) differs from
+    n_embd as in the 12B, a 16-row window (a 34-token prompt crosses it) and,
+    for gemma3, 6 layers so that one is a full-attention layer; gemma2's
+    softcaps are cut to `UNIT_GEMMA2_SOFTCAPS` with the width (a unit model's
+    scores and logits never reach 50 or 30). Its expert widths are
+    `UNIT_EXPERTS`."""
+    if arch in ("gemma", "gemma2", "gemma3"):
+        g3 = arch == "gemma3"
+        cfg = LlamaConfig(arch=arch, n_layers=6 if g3 else 2, n_embd=256, n_heads=2,
+                          n_kv_heads=1, head_dim=256, n_ff=512, n_vocab=2048, n_ctx_train=256,
+                          rms_eps=1e-6,
+                          rope=RopeParams(n_dims=256, mode="neox",
+                                          freq_base=1000000.0 if g3 else 10000.0,
+                                          freq_scale=1 / 8 if g3 else 1.0),
+                          qk_norm=g3, act="gelu", tie_embeddings=True, embd_scale=16.0)
+        if arch == "gemma":
+            return cfg
+        cfg = dataclasses.replace(cfg, post_norms=True, swa_window=16)
+        if g3:
+            return dataclasses.replace(cfg, swa_pattern=6, rope_local_base=10000.0)
+        attn_cap, final_cap = UNIT_GEMMA2_SOFTCAPS
+        return dataclasses.replace(cfg, swa_pattern=2, attn_logit_softcap=attn_cap,
+                                   final_logit_softcap=final_cap)
     cfg = LlamaConfig(arch=arch, n_layers=2, n_embd=256, n_heads=2, n_kv_heads=1,
                       head_dim=128, n_ff=512, n_vocab=2048, n_ctx_train=256, rms_eps=1e-6,
                       rope=RopeParams(n_dims=128, mode="norm" if arch == "mistral" else "neox",
@@ -137,6 +187,9 @@ def unit_config(arch: str) -> LlamaConfig:
     return cfg
 
 
+# the unit gemma2's (attention, final logit) softcaps: at width 256 its
+# scores and logits reach a few units, where these caps bend them
+UNIT_GEMMA2_SOFTCAPS = (3.0, 10.0)
 UNIT_EXPERTS = (256, 2)  # routed expert width, shared experts (qwen2moe's)
 
 
@@ -199,16 +252,24 @@ def synth_qtensor(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ..
     return repack(synth_raw(rng, kind, shape), kind, shape)
 
 
-def _spm_vocab(n_vocab: int) -> tuple[list[str], list[float], list[int]]:
-    """An SPM vocab of n_vocab pieces: <unk> <s> </s>, the 256 byte tokens,
-    the printable ASCII characters, then filler words."""
-    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(256)]
-    types = [2, 3, 3] + [6] * 256  # UNKNOWN, CONTROL ×2, BYTE ×256
+_SPM_SPECIALS = (("<unk>", 2), ("<s>", 3), ("</s>", 3))  # (text, UNKNOWN / CONTROL)
+# Gemma's SPM control tokens (ids 0-3 as in its GGUFs; the two turn markers
+# follow here, where the real vocab has them at 106 and 107)
+_GEMMA_SPECIALS = (("<pad>", 3), ("<eos>", 3), ("<bos>", 3), ("<unk>", 2),
+                   ("<start_of_turn>", 3), ("<end_of_turn>", 3))
+
+
+def _spm_vocab(n_vocab: int, specials=_SPM_SPECIALS) -> tuple[list[str], list[float], list[int]]:
+    """An SPM vocab of n_vocab pieces: the special tokens, the 256 byte
+    tokens, the printable ASCII characters, then filler words."""
+    tokens = [t for t, _ in specials] + [f"<0x{i:02X}>" for i in range(256)]
+    types = [k for _, k in specials] + [6] * 256  # BYTE ×256
     tokens += ["▁" if c == " " else c for c in map(chr, range(32, 127))]
     tokens += [f"▁w{i}" for i in range(n_vocab - len(tokens))]
     tokens = tokens[:n_vocab]
     types += [1] * (n_vocab - len(types))  # NORMAL
-    scores = [0.0] * 259 + [-float(i) for i in range(n_vocab - 259)]
+    n_fixed = len(specials) + 256
+    scores = [0.0] * n_fixed + [-float(i) for i in range(n_vocab - n_fixed)]
     return tokens, scores, types[:n_vocab]
 
 
@@ -251,6 +312,34 @@ QWEN2_CHAT_TEMPLATE = (
     "{{- '<|im_start|>' + message.role + '\\n' + message.content + '<|im_end|>' + '\\n' }}"
     "{%- endif %}{%- endfor %}{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}"
     "{%- endif %}")
+# gemma-3-12b-it's chat template (tokenizer_config.json): no system role of
+# its own (a system message prefixes the first user turn), "model" for the
+# assistant; the server renders it through the builtin "gemma" family its
+# markers name
+GEMMA_CHAT_TEMPLATE = (
+    "{{ bos_token }}\n{%- if messages[0]['role'] == 'system' -%}\n"
+    "    {%- if messages[0]['content'] is string -%}\n"
+    "        {%- set first_user_prefix = messages[0]['content'] + '\\n\\n' -%}\n"
+    "    {%- else -%}\n"
+    "        {%- set first_user_prefix = messages[0]['content'][0]['text'] + '\\n\\n' -%}\n"
+    "    {%- endif -%}\n    {%- set loop_messages = messages[1:] -%}\n{%- else -%}\n"
+    "    {%- set first_user_prefix = \"\" -%}\n    {%- set loop_messages = messages -%}\n"
+    "{%- endif -%}\n{%- for message in loop_messages -%}\n"
+    "    {%- if (message['role'] == 'user') != (loop.index0 % 2 == 0) -%}\n"
+    "        {{ raise_exception(\"Conversation roles must alternate "
+    "user/assistant/user/assistant/...\") }}\n    {%- endif -%}\n"
+    "    {%- if (message['role'] == 'assistant') -%}\n        {%- set role = \"model\" -%}\n"
+    "    {%- else -%}\n        {%- set role = message['role'] -%}\n    {%- endif -%}\n"
+    "    {{ '<start_of_turn>' + role + '\\n' + (first_user_prefix if loop.first else \"\") }}\n"
+    "    {%- if message['content'] is string -%}\n        {{ message['content'] | trim }}\n"
+    "    {%- elif message['content'] is iterable -%}\n"
+    "        {%- for item in message['content'] -%}\n"
+    "            {%- if item['type'] == 'image' -%}\n                {{ '<start_of_image>' }}\n"
+    "            {%- elif item['type'] == 'text' -%}\n                {{ item['text'] | trim }}\n"
+    "            {%- endif -%}\n        {%- endfor -%}\n    {%- else -%}\n"
+    "        {{ raise_exception(\"Invalid content type\") }}\n    {%- endif -%}\n"
+    "    {{ '<end_of_turn>\\n' }}\n{%- endfor -%}\n{%- if add_generation_prompt -%}\n"
+    "    {{'<start_of_turn>model\\n'}}\n{%- endif -%}\n")
 N_CONTROL = 256  # control tokens in the last ids (llama-3: 128000.. at full size)
 # the byte-level BPE presets `bpe_vocab` writes: pre-tokenizer → (control
 # tokens first in the control block, index of bos, eos and eot among them,
@@ -332,12 +421,13 @@ _FALLBACK = {GGMLType.Q2_K: GGMLType.Q4_0, GGMLType.Q3_K: GGMLType.Q4_1,
 
 
 def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
-                k: int = 0, n_gqa: int = 1) -> GGMLType:
+                k: int = 0, n_gqa: int = 1, tied: bool = False) -> GGMLType:
     """The kind of tensor `name` (row length k) in a file of `ftype`. Q4_0 /
     Q4_1 / Q8_0: every matrix that kind. The K-quant mixes: llama_tensor_get_type's
-    rows for a model with an output tensor (the JAX package's
-    tools/quantize.py:121-228), with attn_v and ffn_down counted by layer
-    index (one of each a layer): the LM head Q6_K; attn_v Q4_K (Q2_K at
+    rows (the JAX package's tools/quantize.py:121-228), with attn_v and
+    ffn_down counted by layer index (one of each a layer): the LM head Q6_K
+    (with `tied`, a file without output.weight, token_embd is the LM head and
+    takes its kind, quantize.py:136); attn_v Q4_K (Q2_K at
     n_gqa ≥ 4, else Q3_K), Q5_K in layers 0-1 then Q4_K (Q3_K_M), or Q6_K
     in the use_more_bits layers (Q4_K_M, Q5_K_M); every ffn_down (a dense
     one, an expert stack's, a shared expert's) Q3_K (Q2_K), Q5_K in the
@@ -355,7 +445,7 @@ def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
         raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
     kind = _DEFAULT_KIND[ftype]
     layer = int(name.split(".")[1]) if name.startswith("blk.") else 0
-    if name == "output.weight":
+    if name == "output.weight" or (tied and name == "token_embd.weight"):
         kind = GGMLType.Q6_K
     elif "attn_v.weight" in name:
         if ftype == "Q2_K":
@@ -407,7 +497,14 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     whose registry row has fused_qkv / fused_gate_up (phi3) gets one
     attn_qkv [(H + 2·Hkv)·D, C] and one gate|up ffn_up [2·n_ff, C] a layer.
     `experts` = (routed expert width, shared experts): by default
-    DEEPSEEK_V2_LITE_EXPERTS for deepseek2, else (n_ff, 0)."""
+    DEEPSEEK_V2_LITE_EXPERTS for deepseek2, else (n_ff, 0). A head_dim
+    other than n_embd / n_heads is written as attention.key_length /
+    value_length; linear rope scaling as rope.scaling.type / factor. The
+    Gemma family (vocab "gemma": Gemma's SPM specials and chat template)
+    adds the sliding window and gemma2's softcaps as llama.cpp's converter
+    writes them, post_attention_norm / post_ffw_norm with post_norms, and
+    no output.weight with tie_embeddings (token_embd then takes the LM
+    head's kind)."""
     rng = np.random.default_rng(seed)
     arch = cfg.arch
     mla = cfg.kv_lora_rank > 0
@@ -427,6 +524,15 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
     w.add_float32(f"{arch}.rope.freq_base", cfg.rope.freq_base)
     w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
     w.add_uint32(f"{arch}.vocab_size", cfg.n_vocab)
+    if not mla and cfg.head_dim != cfg.n_embd // cfg.n_heads:
+        w.add_uint32(f"{arch}.attention.key_length", cfg.head_dim)
+        w.add_uint32(f"{arch}.attention.value_length", cfg.head_dim)
+    if cfg.swa_window:
+        w.add_uint32(f"{arch}.attention.sliding_window", cfg.swa_window)
+    if cfg.attn_logit_softcap:
+        w.add_float32(f"{arch}.attn_logit_softcapping", cfg.attn_logit_softcap)
+    if cfg.final_logit_softcap:
+        w.add_float32(f"{arch}.final_logit_softcapping", cfg.final_logit_softcap)
     if cfg.n_expert:
         w.add_uint32(f"{arch}.expert_count", cfg.n_expert)
         w.add_uint32(f"{arch}.expert_used_count", cfg.n_expert_used)
@@ -453,24 +559,36 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
         w.add_float32(f"{arch}.rope.scaling.factor", 1.0 / cfg.rope.freq_scale)
         w.add_uint32(f"{arch}.rope.scaling.original_context_length", cfg.rope.n_ctx_orig)
         w.add_float32(f"{arch}.rope.scaling.yarn_log_multiplier", DEEPSEEK_V2_YARN_LOG_MUL)
+    elif cfg.rope.freq_scale != 1.0:  # linear (gemma3's full-attention layers)
+        w.add_string(f"{arch}.rope.scaling.type", "linear")
+        w.add_float32(f"{arch}.rope.scaling.factor", 1.0 / cfg.rope.freq_scale)
     if vocab in BPE_PRESETS:
         for key, val in bpe_vocab(cfg.n_vocab, vocab).items():
             w.add_kv(key, val)
-    elif vocab == "spm":
-        tokens, scores, types = _spm_vocab(cfg.n_vocab)
+    elif vocab in ("spm", "gemma"):
+        gemma = vocab == "gemma"
+        tokens, scores, types = _spm_vocab(cfg.n_vocab, _GEMMA_SPECIALS if gemma
+                                           else _SPM_SPECIALS)
         w.add_kv("tokenizer.ggml.model", "llama")
         w.add_kv("tokenizer.ggml.tokens", tokens)
         w.add_kv("tokenizer.ggml.scores", scores)
         w.add_kv("tokenizer.ggml.token_type", types)
+        if gemma:  # as llama.cpp's converter writes a Gemma tokenizer
+            for key, val in (("bos_token_id", 2), ("eos_token_id", 1),
+                             ("unknown_token_id", 3), ("padding_token_id", 0),
+                             ("add_bos_token", True), ("add_eos_token", False),
+                             ("add_space_prefix", False)):
+                w.add_kv(f"tokenizer.ggml.{key}", val)
+            w.add_kv("tokenizer.chat_template", GEMMA_CHAT_TEMPLATE)
     else:
-        raise ValueError(f"vocab {vocab!r}: 'spm' or one of {sorted(BPE_PRESETS)}")
+        raise ValueError(f"vocab {vocab!r}: 'spm', 'gemma' or one of {sorted(BPE_PRESETS)}")
     if chat_template is not None:
         w.add_kv("tokenizer.chat_template", chat_template)
 
     def add_q(name: str, n: int, k: int, e: int = 0) -> None:
         """A packed [N, K] tensor, or an expert stack [E, N, K] for e > 0."""
         kind = tensor_type(ftype, name, cfg.n_layers, cfg.n_expert, k,
-                           cfg.n_heads // cfg.n_kv_heads)
+                           cfg.n_heads // cfg.n_kv_heads, cfg.tie_embeddings)
         if k % GGML_TYPE_TRAITS[kind].block_size:
             raise ValueError(f"{name}: K={k} is not a multiple of {kind.name}'s block")
         w.add_tensor(name, lambda: synth_raw(rng, kind, (max(e, 1), n, k)), ggml_type=kind,
@@ -516,6 +634,8 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
                 add_f32(p + "attn_q_norm.weight", (hd,), 1.0, 0.1)
                 add_f32(p + "attn_k_norm.weight", (hd,), 1.0, 0.1)
             add_q(p + "attn_output.weight", c, qdim)
+        if cfg.post_norms:
+            w.add_tensor(p + "post_attention_norm.weight", ones)
         w.add_tensor(p + "ffn_norm.weight", ones)
         if cfg.n_expert and i >= cfg.n_dense_layers:  # the router stays f32, as llama.cpp
             e = cfg.n_expert                          # leaves it
@@ -532,6 +652,9 @@ def write_synth_gguf(path: str, cfg: LlamaConfig, ftype: str, *, seed: int = 0,
                 add_f32(p + "ffn_gate_inp_shexp.weight", (1, c), 0.0, float(std))
             continue
         add_ffn(p, "", cfg.n_ff)
+        if cfg.post_norms:
+            w.add_tensor(p + "post_ffw_norm.weight", ones)
     w.add_tensor("output_norm.weight", ones)
-    add_q("output.weight", cfg.n_vocab, c)
+    if not cfg.tie_embeddings:
+        add_q("output.weight", cfg.n_vocab, c)
     w.write()

@@ -17,6 +17,7 @@ import torch
 from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (flash_decode, flash_decode_plain,
+                                                            flash_prefill, flash_prefill_plain,
                                                             mla_flash_decode,
                                                             mla_flash_decode_plain)
 from llama_cpp_dsp_tpu_torch.ops.kernels.attn_fused import attn_decode_fused, attn_fused_plain
@@ -155,6 +156,18 @@ def test_port_imports_with_jax_blocked():
         qctx = LlamaContext(load_model(path), n_ctx=16, device="cpu")
         qctx.eval_tokens([1, 2, 3])
         assert np.isfinite(qctx.eval_tokens([4])).all()
+        # the Gemma family: a unit gemma3 file (head_dim 256, a sliding
+        # window, post norms, a tied embedding, the Gemma vocab) through a
+        # prompt past the window and a decode step, and B4's plain version
+        from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_prefill
+        write_synth_gguf(path, unit_config("gemma3"), "Q4_0", vocab="gemma")
+        gctx = LlamaContext(load_model(path), n_ctx=40, device="cpu")
+        gctx.eval_tokens(list(range(2, 22)))
+        assert np.isfinite(gctx.eval_tokens([4])).all()
+        out = flash_prefill(torch.ones(1, 3, 4, 256), torch.ones(1, 2, 8, 256),
+                            torch.ones(1, 2, 8, 256), torch.tensor([2]), scale=0.1,
+                            swa_window=2)
+        assert out.shape == (1, 3, 4, 256)
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("imported", len(names))
     """, ROOT)
@@ -232,6 +245,11 @@ def test_wrappers_take_plain_version_on_cpu():
     want = attn_fused_plain(x, w, k, v, cos, sin, lengths, None, lengths - 1, n_heads=2,
                             n_kv_heads=2, scale=0.1)
     assert torch.equal(got, want) and torch.equal(kc, k) and torch.equal(vc, v)
+    q = t(2, 5, 4, 256)  # B4: a 5-token prompt chunk after 3 cached rows, a 4-row window
+    n_past = torch.tensor([3, 0], dtype=torch.int32)
+    kp, vp = t(2, 2, 16, 256).to(torch.bfloat16), t(2, 2, 16, 256).to(torch.bfloat16)
+    assert torch.equal(flash_prefill(q, kp, vp, n_past, scale=0.1, swa_window=4),
+                       flash_prefill_plain(q, kp, vp, n_past, scale=0.1, swa_window=4))
     q = t(2, 4, 256)
     c = t(2, 1, 16, 256).to(torch.bfloat16)
     assert torch.equal(mla_flash_decode(q, c, lengths, scale=0.1, r=128),

@@ -256,7 +256,7 @@ def test_loader_refuses_unported_tensors(tmp_path, monkeypatch):
                       head_dim=32, n_ff=128, n_vocab=300, n_ctx_train=64,
                       rope=RopeParams(n_dims=32))
     base = synth.GGUFWriter
-    for extra, after, row in (("blk.0.attn_post_norm.weight", "blk.0.attn_norm.weight", "A3"),
+    for extra, after, row in (("blk.0.attn_sub_norm.weight", "blk.0.attn_norm.weight", "A3"),
                               ("blk.1.ffn_down.bias", "blk.1.attn_norm.weight", "A3"),
                               ("output.bias", "output_norm.weight", "A3"),
                               ("blk.1.ssm_a", "blk.1.attn_norm.weight", "A8")):
@@ -273,3 +273,9 @@ def test_loader_refuses_unported_tensors(tmp_path, monkeypatch):
                            match=rf"tensor {re.escape(extra)}: .*ROADMAP.md queue A, {row}\)"):
             load_model(path)
         assert jax_load_model(path).cfg.n_layers == 2  # JAX maps it
+    # the Gemma post norms, under both GGUF names, load as JAX maps them
+    for name, key in (("attn_post_norm", "attn_post_norm"),
+                      ("post_attention_norm", "attn_post_norm"),
+                      ("ffn_post_norm", "ffn_post_norm"), ("post_ffw_norm", "ffn_post_norm")):
+        assert port_loader._LAYER_TENSORS[f"{name}.weight"] == key
+        assert jax_loader._LAYER_TENSORS[f"{name}.weight"] == key
