@@ -16,7 +16,9 @@ Phases:
            attention at H 28 over Hkv 4 too; the decode kernels at head_dim
            256 with Gemma-3-12B's heads; the causal prefill kernel B4 at the
            Gemma-3-12B, Gemma-2-9B, Llama-3-8B and Qwen2.5-7B shapes, with
-           windows, chunks, softcaps and stale rows), with its stated
+           windows, chunks, softcaps and stale rows; qmm for the 11 IQ / TQ
+           kinds at the Llama-3-8B shapes, their expert kernels at
+           Qwen3-30B-A3B's), with its stated
            tolerance and, where it has one, a planted fault that the
            tolerance must catch; times of kernel, plain version and a
            PyTorch yardstick call.
@@ -85,6 +87,16 @@ Phases:
            the first decode step against a plain-prefill twin, a profiled
            chunk and prefill; then the server over slots bf16 and paged q8_0
            with two ~1300-token chats sharing a system prompt.
+  small_iq unit-size llama in every IQ / TQ ftype (IQ4_NL, IQ4_XS, IQ2_XXS,
+           IQ2_XS, IQ2_S, IQ2_M, IQ3_XXS, IQ3_XS, IQ3_S, IQ3_M, IQ1_S, IQ1_M,
+           TQ1_0, TQ2_0) and unit qwen3moe with experts in each of the 11
+           kinds, the qwen2 vocab: a 34-token prefill and a 16-token greedy
+           stream on the card against the CPU; every IQ / TQ qmm and
+           selected-expert kernel must run.
+  iq       full-width, full-depth Llama-3-8B IQ4_XS (the CLI: tokens/s,
+           launches of one decode step, bytes a token reads, a profiled
+           chunk and 512-token prefill; the server over slots bf16 and
+           paged q8_0) and IQ2_M (the CLI).
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -114,7 +126,7 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "small_kv", "llama3",
           "kv8b", "q5km", "small_moe", "mixtral", "small_ds", "deepseek", "small_qwen", "qwen",
-          "small_gemma", "gemma")
+          "small_gemma", "gemma", "small_iq", "iq")
 
 
 def fail(msg: str) -> None:
@@ -241,10 +253,21 @@ def planted_qmm_fault(w):
     Q4_0/Q8_0: Q2_K/Q4_K/Q5_K with group 3's dmin·mn term dropped in every
     superblock, Q3_K with its high bits (hmask) dropped, Q6_K with 16-group
     5's scale zeroed, Q4_1 with its blocks' m dropped, Q5_0/Q5_1 with their
-    fifth bits dropped. The plain version on it
+    fifth bits dropped, the IQ / TQ kinds with each block's low and high
+    nibbles swapped (G = 32) or its high half taking the low half's scale
+    (G = 16). The plain version on it
     must fail the NMSE limit, or the limit would not catch such a kernel."""
-    from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
+    from llama_cpp_dsp_tpu_torch.ops.qtensor import IQ_KINDS, QTensor
 
+    if w.kind in IQ_KINDS:  # a bug of the table kinds' layout: one of their halves
+        if w["d"].shape[-1] * 16 == w.shape[1]:  # G = 16: each block's high half scaled
+            bad = w["d"].clone()                 # by its low half's scale
+            bad[..., 1::2] = bad[..., 0::2]
+            return QTensor(w.kind, w.shape, {**w.arrays, "d": bad}, w.n_expert), \
+                "each block's high-half scale replaced by its low-half one"
+        qs = w["qs"]
+        return QTensor(w.kind, w.shape, {**w.arrays, "qs": (qs >> 4) | (qs << 4)},
+                       w.n_expert), "low and high nibbles swapped"
     key, idx, label = {"Q2_K": ("mn", 3, "group 3's dmin*mn dropped"),
                        "Q3_K": ("hmask", None, "every high bit dropped"),
                        "Q4_K": ("mn", 3, "group 3's dmin*mn dropped"),
@@ -277,9 +300,10 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
     rng = np.random.default_rng(rng_seed)
     gen = torch.Generator(device="cuda").manual_seed(rng_seed)
     worst = worst_nmse = 0.0
-    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "carrier_bytes": 0.0,
+         "flops": 0.0}
     for n, k in shapes:
-        w = synth_qtensor(rng, kind, (n, k)).to("cuda")
+        w = synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
         w_exact = dequant(w, torch.float32)
         for b in batches:
             x = torch.randn(b, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -305,7 +329,7 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
         calls = decode_calls.get((n, k), 0)
         if calls:  # time the decode GEMV (B=1) with the weight cold in L2
             x = torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
-            ws = [w] + [synth_qtensor(rng, kind, (n, k)).to("cuda")
+            ws = [w] + [synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
                         for _ in range(n_copies(w.nbytes) - 1)]
             dense = [dequant(wi, torch.bfloat16) for wi in ws[:n_copies(n * k * 2)]]
             ms = time_ms(qmm, [(x, wi) for wi in ws])
@@ -322,6 +346,7 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
             t["bytes"] += calls * (gguf_nbytes(w) + x.numel() * 2 + n * 4)
+            t["carrier_bytes"] += calls * (w.nbytes + x.numel() * 2 + n * 4)
             t["flops"] += calls * 2.0 * n * k
             del ws, dense
     rec = records[f"qmm_{kind_name}"]
@@ -331,6 +356,8 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
         bms, by = bound_ms(t["bytes"], t["flops"])
         rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
                    bound_ms=bms, bound_by=by)
+        if kind_name.startswith(("iq", "tq")):  # the table carrier's bytes beside the GGUF's
+            rec["carrier_bound_ms"] = bound_ms(t["carrier_bytes"], t["flops"])[0]
 
 
 # Mixtral-8x7B: (N, K) of the expert stacks (gate/up, down), E = 8; calls of
@@ -398,6 +425,19 @@ DS_QMM_SHAPES = {"q4_k": [(3072, 2048), (576, 2048), (2048, 2048), (2816, 2048),
                           (2048, 2816), (21888, 2048)],
                  "q6_k": [(2048, 2816), (102400, 2048)]}
 
+# The IQ / TQ kinds (B1's table bodies and their B9 entries): checked at the
+# Llama-3-8B shapes, each timed per token of an 8B whose matrices all take
+# the kind, row-fused as the IQ4_XS file runs them (q|k|v, o, gate|up, down:
+# 128 GEMVs); B9 at Qwen3-30B-A3B's expert stacks, timed per token of a file
+# whose experts take the kind (S = 8: gate/up ×96, down ×48)
+IQ_KINDS = ("iq4_nl", "iq4_xs", "iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s", "iq1_s",
+            "iq1_m", "tq1_0", "tq2_0")
+DECODE_CALLS_L3_IQ = {(6144, 4096): 32, (4096, 4096): 32, (28672, 4096): 32, (4096, 14336): 32}
+QWEN_DECODE_CALLS_IQ = {(768, 2048): 96, (2048, 768): 48}
+# the Pallas body each kind's kernel replaces (llama_cpp_dsp_tpu/ops/pallas/qmm.py)
+IQ_BODY_LINE = {k: 274 if k.startswith("iq4") else 293 if k in ("iq2_xs", "iq2_s", "iq1_m")
+                else 283 for k in IQ_KINDS}
+
 
 def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
                       shapes=MOE_SHAPES, rows=MOE_ROWS, decode_calls=None, s_time: int = 2):
@@ -420,7 +460,8 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
     rng = np.random.default_rng(rng_seed)
     gen = torch.Generator(device="cuda").manual_seed(rng_seed)
     worst = worst_nmse = 0.0
-    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "carrier_bytes": 0.0,
+         "flops": 0.0}
 
     def library(x, w, sel):  # PyTorch alone: dequant the selected experts, bmm
         s, (n, k) = x.shape[0], w.shape
@@ -431,7 +472,7 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
     if decode_calls is None:
         decode_calls = MOE_DECODE_CALLS[kind_name]
     for n, k in shapes:
-        w = synth_qtensor(rng, kind, (n_expert, n, k)).to("cuda")
+        w = synth_qtensor(rng, kind, (n_expert, n, k), device="cuda").to("cuda")
         per_expert = w.nbytes // n_expert
         for s in rows:
             ids = rng.integers(0, n_expert, s)
@@ -473,6 +514,7 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
             t["library_ms"] += calls * lms
             t["bytes"] += calls * (st * gguf_nbytes(w) // n_expert + x.numel() * 2 + 4 * st
                                    + st * n * 4)
+            t["carrier_bytes"] += calls * (st * per_expert + x.numel() * 2 + 4 * st + st * n * 4)
             t["flops"] += calls * 2.0 * st * n * k
         del w
         torch.cuda.empty_cache()
@@ -483,6 +525,8 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
         bms, by = bound_ms(t["bytes"], t["flops"])
         rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
                    bound_ms=bms, bound_by=by)
+        if kind_name.startswith(("iq", "tq")):
+            rec["carrier_bound_ms"] = bound_ms(t["carrier_bytes"], t["flops"])[0]
 
 
 FLASH_ATOL = 2e-3  # bf16 cache, f32 math in both; sums in another order
@@ -2087,8 +2131,15 @@ def phase_llama3(records: dict, path: Path, model) -> None:
     ctx, _, _ = _cli_step(records, path, model, "Llama-3-8B Q4_K_M",
                           ["qmm_q4_k", "qmm_q6_k", "flash_decode", "flash_prefill"],
                           ["qmm_q4_k", "qmm_q6_k"])
-    # prefill at a llama-3 prompt length: one call of 512 tokens (tiled qmm,
-    # the plain attention), to weigh B4 flash prefill
+    _profile_prefill_512(ctx, model)
+    del ctx
+    torch.cuda.empty_cache()
+    phase_serve(records, path, model, SERVE_CONFIGS_L3, n_ctx=2048, system_repeat=16)
+
+
+def _profile_prefill_512(ctx, model) -> None:
+    """A prefill at a llama-3 prompt length: one call of 512 tokens (the
+    tiled qmm, B4), profiled."""
     long = model.tokenizer.encode("The quick brown fox jumps over the lazy dog. " * 80)[:512]
 
     def prefill():
@@ -2097,9 +2148,6 @@ def phase_llama3(records: dict, path: Path, model) -> None:
 
     print(f"  prefill of {len(long)} tokens in one call:")
     profile_steps(prefill, 1)
-    del ctx
-    torch.cuda.empty_cache()
-    phase_serve(records, path, model, SERVE_CONFIGS_L3, n_ctx=2048, system_repeat=16)
 
 
 SERVE_CONFIGS_KV8B = {  # name → (server flags, kernels its decode must launch)
@@ -2521,14 +2569,15 @@ SERVE_CONFIGS_QWEN = {  # name → (server flags, kernels its decode must launch
 }
 
 
-def _qwen_cli(records: dict, path: Path, model, label: str, must: list[str], own: str) -> None:
-    """A full-width Qwen model through `_cli_step`, with the weight and KV
-    bytes a token reads. The launches of `own` (the kernel this CLI is the
-    main path of) are this CLI's; another kernel of `must` takes its count
-    from the first path that runs it."""
+def _cli_and_bytes(records: dict, path: Path, model, label: str, must: list[str],
+                   own: list[str]):
+    """A full-width model through `_cli_step`, with the weight and KV bytes
+    a token reads. The launches of `own` (the kernels this CLI is the main
+    path of) are this CLI's; another kernel of `must` takes its count from
+    the first path that runs it. Returns the launches of one decode step."""
     import torch
 
-    ctx, _, counts = _cli_step(records, path, model, label, must, [own])
+    ctx, step, counts = _cli_step(records, path, model, label, must, own)
     for k in must:
         records[k]["launches"] = records[k]["launches"] or counts[k]
     cfg = model.cfg
@@ -2538,6 +2587,7 @@ def _qwen_cli(records: dict, path: Path, model, label: str, must: list[str], own
           f" ms at 3.35 TB/s), {lb} in the port's layout; KV cache {kv} a cached row")
     del ctx
     torch.cuda.empty_cache()
+    return step
 
 
 def phase_qwen(records: dict, files: dict, model_of, done_with) -> None:
@@ -2550,9 +2600,9 @@ def phase_qwen(records: dict, files: dict, model_of, done_with) -> None:
     from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
 
     model = model_of("q25")
-    _qwen_cli(records, files["q25"][0], model, "Qwen2.5-7B Q3_K_M",
-              ["qmm_q3_k", "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "flash_decode", "flash_prefill"],
-              "qmm_q3_k")
+    _cli_and_bytes(records, files["q25"][0], model, "Qwen2.5-7B Q3_K_M",
+                   ["qmm_q3_k", "qmm_q4_k", "qmm_q5_k", "qmm_q6_k", "flash_decode",
+                    "flash_prefill"], ["qmm_q3_k"])
     chat = apply_chat_template(model.vocab.chat_template,
                                [{"role": "system", "content": "Be brief."},
                                 {"role": "user", "content": "Hi"}])
@@ -2563,9 +2613,9 @@ def phase_qwen(records: dict, files: dict, model_of, done_with) -> None:
                 system_repeat=16)
     done_with("q25")
     del model
-    _qwen_cli(records, files["q3"][0], model_of("q3"), "Qwen3-8B Q2_K",
-              ["qmm_q2_k", "qmm_q3_k", "qmm_q4_k", "qmm_q6_k", "flash_decode", "flash_prefill"],
-              "qmm_q2_k")
+    _cli_and_bytes(records, files["q3"][0], model_of("q3"), "Qwen3-8B Q2_K",
+                   ["qmm_q2_k", "qmm_q3_k", "qmm_q4_k", "qmm_q6_k", "flash_decode",
+                    "flash_prefill"], ["qmm_q2_k"])
     done_with("q3")
 
 
@@ -2788,6 +2838,95 @@ def phase_gemma(records: dict, files: dict, model_of, done_with) -> None:
     done_with("g3")
 
 
+# unit llama models in every IQ / TQ ftype, and a unit qwen3moe in each
+# ftype whose experts take another of the 11 kinds (the experts take the
+# ftype's default kind)
+SMALL_IQ_LLAMA = ("IQ4_NL", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ2_M", "IQ3_XXS", "IQ3_XS",
+                  "IQ3_S", "IQ3_M", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0")
+SMALL_IQ_MOE = ("IQ4_NL", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S",
+                "IQ1_M", "TQ1_0", "TQ2_0")
+
+
+def _qmm_counters(model) -> list[str]:
+    """The launch counts of the qmm / B9 kernels a model's packed matrices
+    take (an expert stack: the selected-expert kernel)."""
+    from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import _counter
+    from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor
+
+    ws = [model.params.get("output")] + [w for layer in model.params["layers"]
+                                         for w in layer.values()]
+    return sorted({_counter(w.kind, bool(w.n_expert)) for w in ws if isinstance(w, QTensor)})
+
+
+def phase_small_iq(records: dict) -> None:
+    """The IQ / TQ kinds at unit size (`tools/synth.py::unit_config`, the
+    qwen2 vocab): a llama in every ftype of SMALL_IQ_LLAMA and a qwen3moe
+    (16 experts top-4) in every ftype of SMALL_IQ_MOE, card against CPU: a
+    34-token prompt (a 32-token chunk through the tiled kernels, every
+    expert over every row in the MoE layers, then two rows through the
+    GEMVs) and a 16-token greedy stream (the GEMVs, the selected-expert
+    kernel). Fails unless every IQ / TQ qmm and B9 kernel ran in the phase."""
+    from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+    from llama_cpp_dsp_tpu_torch.tools.synth import UNIT_EXPERTS, unit_config, write_synth_gguf
+
+    total = {}
+    for arch, ftypes in (("llama", SMALL_IQ_LLAMA), ("qwen3moe", SMALL_IQ_MOE)):
+        for ftype in ftypes:
+            path = ROOT / "build" / "smoke" / f"small-{arch}-{ftype.lower()}.gguf"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            write_synth_gguf(str(path), unit_config(arch), ftype, seed=5, vocab="qwen2",
+                             experts=UNIT_EXPERTS)
+            model = load_model(str(path))
+            must = _qmm_counters(model)
+            counts = small_model_check(path, SMALL_QWEN_PROMPT, [*must, "flash_prefill"],
+                                       f"small_iq {arch} {ftype}", model=model, n_stream=16)
+            for k in must:  # a kernel's count comes from the first path that runs it
+                records[k]["launches"] = records[k]["launches"] or counts[k]
+                total[k] = total.get(k, 0) + counts[k]
+    require(total, [f"qmm{part}_{k}" for part in ("", "_experts") for k in IQ_KINDS], "small_iq")
+
+
+SERVE_CONFIGS_IQ = {  # name → (server flags, kernels its decode must launch)
+    "slots bf16": ([], ["flash_decode", "qmm_iq4_xs", "qmm_q6_k"]),
+    "paged q8_0": (["--kv-layout", "paged", "-ctk", "q8_0"],
+                   ["flash_decode_paged_q8", "qmm_iq4_xs", "qmm_q6_k"]),
+}
+
+
+def phase_iq(records: dict, files: dict, model_of, done_with) -> None:
+    """Llama-3-8B at full width and depth in two IQ mixes (the kinds of the
+    JAX package's tools/quantize.py::tensor_get_type): IQ4_XS (every matrix,
+    the embedding too; Q6_K LM head) through the CLI (tokens/s, the launches
+    of one decode step, the bytes a token reads, a profiled chunk, a
+    profiled 512-token prefill), then the server over slots bf16 and paged
+    q8_0; IQ2_M (IQ2_S q, o, gate|up, down; IQ3_S attn_k; Q4_K attn_v; Q2_K
+    embedding; Q5_K LM head) through the CLI."""
+    import torch
+
+    model = model_of("iq4xs")
+    ctx, step, _ = _cli_step(records, files["iq4xs"][0], model, "Llama-3-8B IQ4_XS",
+                             ["qmm_iq4_xs", "qmm_q6_k", "flash_decode", "flash_prefill"],
+                             ["qmm_iq4_xs"])
+    wb, lb = _weight_bytes_per_token(model)
+    print(f"  bytes per decode token: weights {wb} in GGUF blocks ({wb / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms at 3.35 TB/s), {lb} in the port's layout; IQ4_XS GEMVs a step "
+          f"{step.get('qmm_iq4_xs', 0)}")
+    _profile_prefill_512(ctx, model)
+    del ctx
+    torch.cuda.empty_cache()
+    phase_serve(records, files["iq4xs"][0], model, SERVE_CONFIGS_IQ, n_ctx=2048,
+                system_repeat=16)
+    done_with("iq4xs")
+    del model
+    step = _cli_and_bytes(records, files["iq2m"][0], model_of("iq2m"), "Llama-3-8B IQ2_M",
+                          ["qmm_iq2_s", "qmm_iq3_s", "qmm_q4_k", "qmm_q5_k", "flash_decode",
+                           "flash_prefill"], ["qmm_iq2_s", "qmm_iq3_s"])
+    print(f"  IQ2_M GEMVs a step: IQ2_S {step.get('qmm_iq2_s', 0)}, IQ3_S "
+          f"{step.get('qmm_iq3_s', 0)}, Q4_K {step.get('qmm_q4_k', 0)}, Q5_K "
+          f"{step.get('qmm_q5_k', 0)}")
+    done_with("iq2m")
+
+
 def phase_q8(records: dict) -> None:
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from llama_cpp_dsp_tpu_torch.tools.synth import TINYLLAMA_1B, write_synth_gguf
@@ -2854,6 +2993,12 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     "flash_prefill": ("llama_cpp_dsp_tpu_torch/csrc/flash_prefill.cu",
                       "llama_cpp_dsp_tpu/ops/pallas/attention.py:1474",
                       f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
+    **{f"qmm_{k}": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                    f"llama_cpp_dsp_tpu/ops/pallas/qmm.py:{IQ_BODY_LINE[k]}",
+                    f"nmse <= {QMM_NMSE_TOL:g}") for k in IQ_KINDS},
+    **{f"qmm_experts_{k}": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
+                            "llama_cpp_dsp_tpu/ops/pallas/qmm.py:781",
+                            f"per-row nmse <= {QMM_NMSE_TOL:g}") for k in IQ_KINDS},
 }
 
 
@@ -2900,7 +3045,9 @@ def main(argv=None) -> int:
                     MIXTRAL_CHAT_TEMPLATE),
              "q25": (smoke / "qwen2.5-7b-q3_k_m.gguf", "qwen2.5-7b", "Q3_K_M", "qwen2", None),
              "q3": (smoke / "qwen3-8b-q2_k.gguf", "qwen3-8b", "Q2_K", "qwen2", None),
-             "g3": (smoke / "gemma3-12b-q4_k_m.gguf", "gemma3-12b", "Q4_K_M", "gemma", None)}
+             "g3": (smoke / "gemma3-12b-q4_k_m.gguf", "gemma3-12b", "Q4_K_M", "gemma", None),
+             "iq4xs": (smoke / "llama3-8b-iq4_xs.gguf", "llama3-8b", "IQ4_XS", "llama-bpe", None),
+             "iq2m": (smoke / "llama3-8b-iq2_m.gguf", "llama3-8b", "IQ2_M", "llama-bpe", None)}
     loaded = {}
 
     def model_of(key):
@@ -2910,7 +3057,7 @@ def main(argv=None) -> int:
             path, cfg_name, ftype, vocab, template = files[key]
             write_model(path, cfg_name, ftype, seed=0, vocab=vocab, chat_template=template)
             t0 = time.perf_counter()
-            loaded[key] = load_model(str(path))
+            loaded[key] = load_model(str(path), "cuda")
             print(f"  loaded {path.name} in {time.perf_counter() - t0:.1f} s")
         return loaded[key]
 
@@ -2957,6 +3104,14 @@ def main(argv=None) -> int:
                                     for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
                                   *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
                                     for k, shapes in DS_QMM_SHAPES.items()),
+                                  *(check_qmm(k, QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3_IQ,
+                                              records) for k in IQ_KINDS),
+                                  *(check_qmm_experts(k, records, n_expert=128,
+                                                      shapes=QWEN_EXPERT_SHAPES,
+                                                      rows=QWEN_EXPERT_ROWS,
+                                                      decode_calls=QWEN_DECODE_CALLS_IQ,
+                                                      s_time=8)
+                                    for k in IQ_KINDS),
                                   check_flash_decode(records),
                                   check_flash_decode_q4(records), check_attn_fused(records),
                                   check_decode_variants(records), check_mla_decode(records),
@@ -2982,7 +3137,9 @@ def main(argv=None) -> int:
              ("small_qwen", lambda: phase_small_qwen(records)),
              ("qwen", lambda: phase_qwen(records, files, model_of, done_with)),
              ("small_gemma", lambda: phase_small_gemma(records)),
-             ("gemma", lambda: phase_gemma(records, files, model_of, done_with))]
+             ("gemma", lambda: phase_gemma(records, files, model_of, done_with)),
+             ("small_iq", lambda: phase_small_iq(records)),
+             ("iq", lambda: phase_iq(records, files, model_of, done_with))]
     try:
         for name, fn in steps:
             if name in phases:
@@ -3003,7 +3160,8 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("by_row_type", "d256") if k in r}})
+                        **{k: r[k] for k in ("by_row_type", "d256", "carrier_bound_ms")
+                           if k in r}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

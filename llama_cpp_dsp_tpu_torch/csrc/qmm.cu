@@ -1,14 +1,17 @@
 // qmm.cu — packed dequant-matmul y[B,N] f32 = x[B,K] bf16 · dequant(W[N,K])ᵀ
-// for Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights
-// kept packed in device memory.
+// for Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights,
+// and for the IQ / TQ kinds (IQ4_NL, IQ4_XS, IQ2_XXS, IQ2_XS, IQ2_S,
+// IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, TQ1_0, TQ2_0), kept packed in device memory.
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/qmm.py::_kernel with the Q4_0 body
 // (_body_q4_0 via _q4_tile_dot), the Q4_1 body (_body_q4_1), the Q5_0 and
-// Q5_1 bodies (_body_q5_0, _body_q5_1), the Q8_0 body (_body_q8_0), and the
+// Q5_1 bodies (_body_q5_0, _body_q5_1), the Q8_0 body (_body_q8_0), the
 // K-quant bodies _body_q2_K, _body_q3_K, _body_q4_K, _body_q5_K and
-// _body_q6_K. It computes what those bodies compute, not their Mosaic plane
-// layout: the weights stay in GGUF block order, with the K-quants' packed
-// scales unpacked once at load (ops/qtensor.py):
+// _body_q6_K, and the table bodies _body_iq4 (IQ4_NL, IQ4_XS), _body_tab32
+// (IQ2_XXS, IQ3_XXS, IQ3_S, IQ1_S, TQ1_0, TQ2_0) and _body_tab16 (IQ2_XS,
+// IQ2_S, IQ1_M). It computes what those bodies compute, not their Mosaic
+// plane layout: the weights stay in GGUF block order, with the K-quants'
+// packed scales unpacked once at load (ops/qtensor.py):
 //   Q2_K: qs u8 [N,K/4], sc/mn u8 [N,S,16], d/dmin f32 [N,S]  (S = K/256)
 //         w = (d*sc)*q - dmin*mn per 16-element group; in each 128-element
 //         half h, bits 2j..2j+1 of byte l (qs[32h + l]) hold element 32j+l
@@ -24,15 +27,26 @@
 //         w = d*sc*(q-32) per 16-element group; in each 128-element half,
 //         element l+32i (l < 32) is ql[l] (i even) or ql[l+32] (i odd), low
 //         nibble for i < 2, high for i >= 2, plus bits 2i..2i+1 of qh[l]
+//   the table kinds (TableNib): qs u8 [N,K/2] of 4-bit codes in Q4_0's
+//         nibble order, d [N,K/G]; w = table[code] * d per G-weight group,
+//         the table the kind's <= 16 integers (IQ4: kvalues_iq4nl; the grid
+//         and ternary kinds: quant/iq.py IQ_TABLES, an exact decomposition
+//         made at load); G = 32 (d f16 for IQ4_NL, f32 else) or 16 (IQ2_XS,
+//         IQ2_S, IQ1_M: a block's low nibbles take scale 2b, its high ones
+//         2b+1)
 //
 // Bound on this card: at decode (B <= 8) the weight bytes a product needs
 // over the memory rate, counted in GGUF blocks: per 256 weights 144 B
 // (Q4_0), 160 (Q4_1), 176 (Q5_0), 192 (Q5_1), 272 (Q8_0), 84 (Q2_K), 110
-// (Q3_K), 144 (Q4_K), 176 (Q5_K) and 210 (Q6_K). The repacked layout moves
+// (Q3_K), 144 (Q4_K), 176 (Q5_K), 210 (Q6_K), 144 (IQ4_NL), 136 (IQ4_XS),
+// 66 (IQ2_XXS), 74 (IQ2_XS), 82 (IQ2_S), 98 (IQ3_XXS), 110 (IQ3_S), 50
+// (IQ1_S), 56 (IQ1_M), 54 (TQ1_0) and 66 (TQ2_0). The repacked layout moves
 // more for the K-quants: 104 (Q2_K: the unpacked 4-bit scale/min pairs and
 // f32 d/dmin cost 20), 116 (Q3_K: the 6-bit scales unpacked to bytes, d in
-// f32), 152 (Q4_K), 184 (Q5_K) and 212 (Q6_K); the arithmetic is ~2
-// operations per weight element and activation row.
+// f32), 152 (Q4_K), 184 (Q5_K) and 212 (Q6_K); the table carrier moves 160
+// (G = 32 with f32 scales: IQ4_XS and the tab32 kinds) or 192 (G = 16),
+// IQ4_NL its own 144; the arithmetic is ~2 operations per weight element
+// and activation row.
 // Design: B <= 8 runs a GEMV, one warp per output row, lanes striding over
 // units of the row: a 32-element block for Q4_0/Q8_0 and the Q4_1/Q5_0/Q5_1
 // structs (one 16-byte load of packed bits, two for Q8_0, plus the block's
@@ -43,7 +57,9 @@
 // 16-byte loads: ql[l], ql[l+32], qh[l]), so K = 4096 gives 64 units for 32
 // lanes; for Q2_K/Q3_K the same 64-element unit, 16 consecutive l of one
 // half and all four shifts j (one 16-byte qs load, Q3_K one more of hmask,
-// 8 scale bytes), so K = 3584 gives 56 units and K = 768 twelve. Following
+// 8 scale bytes), so K = 3584 gives 56 units and K = 768 twelve; for the
+// table kinds a 32-element block (one 16-byte qs load, one or two scales,
+// the table values by __byte_perm from four registers). Following
 // ggml's vec_dot order each group's dot of the integer values with x is
 // scaled once by its effective scale (d·sc), and for Q2_K/Q4_K/Q5_K the
 // group's dmin·mn·Σx is subtracted; sums across lanes by warp shuffles; the
@@ -517,6 +533,103 @@ struct KQuant3 {  // Q3_K
     }
 };
 
+// scales of the table kinds
+__device__ __forceinline__ float scale_at(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float scale_at(const __half* p) { return __half2float(__ldg(p)); }
+
+// IQ4_NL, IQ4_XS and the table carrier of the grid / ternary kinds: a
+// 32-weight block is 16 bytes of 4-bit codes (byte j: weight j in the low
+// nibble, j+16 in the high one), weight = table[code] * the scale of its
+// group of G (32, or 16: the low nibbles take scale 2b, the high ones 2b+1,
+// the [lo-half | hi-half] split of _body_tab16). The kind's <= 16 int8
+// values travel in the struct as four 32-bit words and are looked up with
+// __byte_perm (ggml's get_int_from_table_16), so no runtime-indexed array
+// spills to local memory. Each group's integer dot is scaled once.
+template <int G, class ScaleT>
+struct TableNib {
+    const uint8_t* qs;
+    const ScaleT* d;
+    uint32_t tab[4];  // table value v in byte v % 4 of word v / 4
+    static constexpr int UNIT = 32;
+    static_assert(G == 32 || G == 16, "a scale per 32 or per 16 weights");
+
+    // the 8 codes of a 32-bit qs word → (values of its low nibbles, values
+    // of its high nibbles), four int8 each in byte order
+    __device__ __forceinline__ int2 lookup(uint32_t q4) const {
+        const uint32_t sel = 0x32103210u | ((q4 & 0x88888888u) >> 1);
+        uint32_t t[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const uint32_t sh = 16 * i;
+            const uint32_t idx = (q4 >> sh) & 0x7777u;  // four selectors, bit 3 apart
+            const uint32_t lo = __byte_perm(tab[0], tab[1], idx);  // codes 0-7
+            const uint32_t hi = __byte_perm(tab[2], tab[3], idx);  // codes 8-15
+            t[i] = __byte_perm(lo, hi, sel >> sh);  // code bit 3 picks hi
+        }
+        return make_int2((int)__byte_perm(t[0], t[1], 0x6420),   // nibbles 0, 2, 4, 6
+                         (int)__byte_perm(t[0], t[1], 0x7531));  // nibbles 1, 3, 5, 7
+    }
+
+    // table values of block blk: w[i] weight i (low nibbles), w[16 + i]
+    // weight 16 + i (high nibbles)
+    __device__ __forceinline__ void values(size_t blk, float w[32]) const {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(qs + blk * 16));
+        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+            const int2 t = lookup(words[v]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                w[4 * v + i] = (float)(int8_t)((uint32_t)t.x >> (8 * i));
+                w[16 + 4 * v + i] = (float)(int8_t)((uint32_t)t.y >> (8 * i));
+            }
+        }
+    }
+
+    template <int NB>
+    __device__ __forceinline__ void unit_dot(int row, int u, const __nv_bfloat16* x, int K,
+                                             float acc[NB]) const {
+        const size_t blk = (size_t)row * (K >> 5) + u;
+        float w[32];
+        values(blk, w);
+        const float s0 = scale_at(d + (G == 32 ? blk : 2 * blk));
+        const float s1 = G == 32 ? s0 : scale_at(d + 2 * blk + 1);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+            const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)b * K + (size_t)u * 32);
+            float lo = 0.f, hi = 0.f;
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+                float xf[8], xg[8];
+                bf16x8(__ldg(xp + v), xf);      // weights 8v .. 8v+7
+                bf16x8(__ldg(xp + 2 + v), xg);  // weights 16+8v .. 16+8v+7
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    lo = fmaf(w[8 * v + e], xf[e], lo);
+                    hi = fmaf(w[16 + 8 * v + e], xg[e], hi);
+                }
+            }
+            acc[b] = fmaf(s0, lo, fmaf(s1, hi, acc[b]));
+        }
+    }
+
+    __device__ __forceinline__ TableNib at_expert(int e, int N, int K) const {
+        const size_t blk = (size_t)e * N * (K >> 5);  // blocks before expert e
+        return TableNib{qs + blk * 16, d + blk * (32 / G), {tab[0], tab[1], tab[2], tab[3]}};
+    }
+
+    __device__ __forceinline__ void dequant16(int row, int K, int k0,
+                                              __nv_bfloat16 out[16]) const {
+        const size_t blk = (size_t)row * (K >> 5) + (k0 >> 5);
+        const int h = (k0 >> 4) & 1;
+        float w[32];
+        values(blk, w);
+        const float s = scale_at(d + (G == 32 ? blk : 2 * blk + h));
+#pragma unroll
+        for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(__fmul_rn(w[16 * h + i], s));
+    }
+};
+
 // One warp: y[b, row] = the dot of weight row `row` with activation rows
 // b < NB, lanes striding over the row's units, summed by warp shuffles.
 template <class W, int NB>
@@ -842,6 +955,59 @@ KERNELS_API int qmm_experts_q6_k(const void* x, const void* sel, const void* ql,
     const KQuant6 w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
                     static_cast<const int8_t*>(sc), static_cast<const float*>(d)};
     return qmm_experts_launch(w, x, sel, y, S, E, N, K, stream);
+}
+
+// The table kinds: x bf16 [B,K], qs u8 [N,K/2], d [N,K/G] (f16 for
+// qmm_tab32_f16, f32 else), the kind's table as four words t0..t3 (value v
+// in byte v % 4 of word v / 4), y f32 [B,N]. K % 32 == 0. The expert
+// entries as the others: sel int32 [S], the fields with a leading [E].
+template <int G, class ScaleT>
+TableNib<G, ScaleT> table_weight(const void* qs, const void* d, uint32_t t0, uint32_t t1,
+                                 uint32_t t2, uint32_t t3) {
+    return TableNib<G, ScaleT>{static_cast<const uint8_t*>(qs), static_cast<const ScaleT*>(d),
+                               {t0, t1, t2, t3}};
+}
+
+KERNELS_API int qmm_tab32_f16(const void* x, const void* qs, const void* d, uint32_t t0,
+                              uint32_t t1, uint32_t t2, uint32_t t3, void* y, int B, int N, int K,
+                              void* stream) {
+    return qmm_launch(table_weight<32, __half>(qs, d, t0, t1, t2, t3), x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_tab32_f32(const void* x, const void* qs, const void* d, uint32_t t0,
+                              uint32_t t1, uint32_t t2, uint32_t t3, void* y, int B, int N, int K,
+                              void* stream) {
+    return qmm_launch(table_weight<32, float>(qs, d, t0, t1, t2, t3), x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_tab16_f32(const void* x, const void* qs, const void* d, uint32_t t0,
+                              uint32_t t1, uint32_t t2, uint32_t t3, void* y, int B, int N, int K,
+                              void* stream) {
+    return qmm_launch(table_weight<16, float>(qs, d, t0, t1, t2, t3), x, y, B, N, K, stream);
+}
+
+KERNELS_API int qmm_experts_tab32_f16(const void* x, const void* sel, const void* qs,
+                                      const void* d, uint32_t t0, uint32_t t1, uint32_t t2,
+                                      uint32_t t3, void* y, int S, int E, int N, int K,
+                                      void* stream) {
+    return qmm_experts_launch(table_weight<32, __half>(qs, d, t0, t1, t2, t3), x, sel, y, S, E,
+                              N, K, stream);
+}
+
+KERNELS_API int qmm_experts_tab32_f32(const void* x, const void* sel, const void* qs,
+                                      const void* d, uint32_t t0, uint32_t t1, uint32_t t2,
+                                      uint32_t t3, void* y, int S, int E, int N, int K,
+                                      void* stream) {
+    return qmm_experts_launch(table_weight<32, float>(qs, d, t0, t1, t2, t3), x, sel, y, S, E, N,
+                              K, stream);
+}
+
+KERNELS_API int qmm_experts_tab16_f32(const void* x, const void* sel, const void* qs,
+                                      const void* d, uint32_t t0, uint32_t t1, uint32_t t2,
+                                      uint32_t t3, void* y, int S, int E, int N, int K,
+                                      void* stream) {
+    return qmm_experts_launch(table_weight<16, float>(qs, d, t0, t1, t2, t3), x, sel, y, S, E, N,
+                              K, stream);
 }
 
 KERNELS_API const char* kernels_error_string(int code) {

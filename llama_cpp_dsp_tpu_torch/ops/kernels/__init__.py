@@ -29,6 +29,11 @@ LAUNCHES: dict[str, int] = {
     "qmm_experts_q4_k": 0,
     "qmm_experts_q5_k": 0,
     "qmm_experts_q6_k": 0,
+    # the IQ / TQ kinds: one count per kind (the C entries are shared by kinds
+    # of one group size and scale type)
+    **{f"qmm{part}_{kind}": 0 for part in ("", "_experts")
+       for kind in ("iq4_nl", "iq4_xs", "iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s",
+                    "iq1_s", "iq1_m", "tq1_0", "tq2_0")},
     "flash_decode": 0,
     "flash_decode_q8": 0,
     "flash_decode_q4": 0,

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 # C entry → argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "qmm_q4_0": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "qmm_q4_k": [_P] * 7 + [_I] * 3 + [_P],  # x, qs, sc, mn, d, dmin, y
     "qmm_q5_k": [_P] * 8 + [_I] * 3 + [_P],  # x, qs, qh, sc, mn, d, dmin, y
     "qmm_q6_k": [_P] * 6 + [_I] * 3 + [_P],  # x, ql, qh, sc, d, y
+    # the table kinds: x, qs, d, the table's four words, y; B, N, K
+    **{f"qmm_{t}": [_P] * 3 + [_U] * 4 + [_P] + [_I] * 3 + [_P]
+       for t in ("tab32_f16", "tab32_f32", "tab16_f32")},
     # MoE selected-expert GEMV: x, sel, the kind's fields, y; S, E, N, K
     "qmm_experts_q4_0": [_P] * 5 + [_I] * 4 + [_P],
     "qmm_experts_q8_0": [_P] * 5 + [_I] * 4 + [_P],
@@ -52,6 +56,8 @@ _SIGNATURES = {
     "qmm_experts_q4_k": [_P] * 8 + [_I] * 4 + [_P],
     "qmm_experts_q5_k": [_P] * 9 + [_I] * 4 + [_P],
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],
+    **{f"qmm_experts_{t}": [_P] * 4 + [_U] * 4 + [_P] + [_I] * 4 + [_P]
+       for t in ("tab32_f16", "tab32_f32", "tab16_f32")},
     # q, k, v, lengths, starts, out, ws_acc, ws_ml; B, H, Hkv, D, S, chunk, row type
     "flash_decode": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
     "flash_decode_q8": [_P] * 10 + [_I] * 6 + [_F, _F, _P],

@@ -1,5 +1,9 @@
 """Packed dequant-matmul y = x · dequant(W)ᵀ for Q4_0, Q4_1, Q5_0, Q5_1,
-Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights.
+Q8_0, Q2_K, Q3_K, Q4_K, Q5_K and Q6_K weights, and for the IQ / TQ kinds
+(IQ4_NL, IQ4_XS and the table carrier of IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS,
+IQ3_S, IQ1_S, IQ1_M, TQ1_0, TQ2_0: 4-bit codes into the kind's value table,
+one C entry per group size and scale type, the table passed as four words;
+launches are counted per kind).
 
 Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`,
 `qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a GEMV for B ≤ 8
@@ -17,10 +21,13 @@ Q2_K/Q4_K/Q5_K, its min term) to the group's dot, as ggml's vec_dot does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...gguf.constants import GGMLType
+from ...quant.blocks import KVALUES_IQ4NL
 from ...quant.dequant import dequant, dequant_fields
+from ...quant.iq import GROUP, IQ_TABLES
 from . import LAUNCHES, aligned16, stream_handle
 
 
@@ -46,6 +53,10 @@ def _fields(kind: GGMLType, n: int, k: int) -> list[tuple[str, torch.dtype, tupl
     if kind == GGMLType.Q3_K:
         return [("qs", torch.uint8, (n, k // 4)), ("hmask", torch.uint8, (n, s, 32)),
                 ("sc", torch.int8, (n, s, 16)), ("d", torch.float32, (n, s))]
+    if kind in _TABLE_OF:
+        g = GROUP.get(kind, 32)
+        dtype = torch.float16 if kind == GGMLType.IQ4_NL else torch.float32
+        return [("qs", torch.uint8, (n, k // 2)), ("d", dtype, (n, k // g))]
     qh = [("qh", torch.uint8, (n, s, 32))] if kind == GGMLType.Q5_K else []
     return [("qs", torch.uint8, (n, k // 2)), *qh, ("sc", torch.uint8, (n, s, 8)),
             ("mn", torch.uint8, (n, s, 8)), ("d", torch.float32, (n, s)),
@@ -61,7 +72,31 @@ _ENTRY = {GGMLType.Q4_0: ("qmm_q4_0", 32), GGMLType.Q4_1: ("qmm_q4_1", 32),
           GGMLType.Q6_K: ("qmm_q6_k", 256)}
 
 
+# the IQ / TQ kinds' value tables: IQ4's codebook or the carrier's
+_TABLE_OF = {GGMLType.IQ4_NL: tuple(int(v) for v in KVALUES_IQ4NL),
+             GGMLType.IQ4_XS: tuple(int(v) for v in KVALUES_IQ4NL), **IQ_TABLES}
+_ENTRY.update({kind: ("qmm_tab32_f16" if kind == GGMLType.IQ4_NL else
+                      f"qmm_tab{GROUP.get(kind, 32)}_f32",
+                      32 if kind == GGMLType.IQ4_NL else 256) for kind in _TABLE_OF})
 _EXPERT_ENTRY = {kind: "qmm_experts" + entry[3:] for kind, (entry, _) in _ENTRY.items()}
+
+
+def _table_words(kind: GGMLType) -> tuple[int, ...]:
+    """The kind's table as the C entry takes it: its int8 values (padded to
+    16) as four little-endian 32-bit words, value v in byte v % 4 of word
+    v // 4; no words for the other kinds."""
+    if kind not in _TABLE_OF:
+        return ()
+    vals = np.zeros(16, np.int8)
+    table = _TABLE_OF[kind]
+    vals[:len(table)] = table
+    return tuple(int(w) for w in vals.view("<u4"))
+
+
+def _counter(kind: GGMLType, experts: bool = False) -> str:
+    """The launch count of a kind's kernel (`LAUNCHES`): qmm_q4_k,
+    qmm_experts_iq2_s, ..."""
+    return f"qmm{'_experts' if experts else ''}_{kind.name.lower()}"
 
 
 def _field_ptrs(w, x: torch.Tensor, name: str, lead: tuple = ()) -> list[int]:
@@ -85,7 +120,7 @@ def _field_ptrs(w, x: torch.Tensor, name: str, lead: tuple = ()) -> list[int]:
 
 def _entry(w, table: dict, name: str) -> str:
     if w.kind not in table:
-        raise NotImplementedError(f"{name} kernel for {w.kind.name} (ROADMAP.md queue B, B1)")
+        raise NotImplementedError(f"{name}: no kernel for {w.kind.name} weights")
     return table[w.kind]
 
 
@@ -113,10 +148,10 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
     b = x2.shape[0]
     y = torch.empty(b, n, dtype=torch.float32, device=x.device)
     if b:
-        rc = getattr(lib(), entry)(x2.data_ptr(), *ptrs, y.data_ptr(), b, n, k,
-                                   stream_handle(x))
+        rc = getattr(lib(), entry)(x2.data_ptr(), *ptrs, *_table_words(w.kind), y.data_ptr(),
+                                   b, n, k, stream_handle(x))
         check(rc, entry)
-        LAUNCHES[entry] += 1
+        LAUNCHES[_counter(w.kind)] += 1
     return y.reshape(*lead, n)
 
 
@@ -159,8 +194,8 @@ def qmm_expert_rows(x: torch.Tensor, w, sel: torch.Tensor) -> torch.Tensor:
     sel = sel.contiguous()
     y = torch.empty(s, n, dtype=torch.float32, device=x.device)
     if s:
-        rc = getattr(lib(), entry)(x2.data_ptr(), sel.data_ptr(), *ptrs, y.data_ptr(), s,
-                                   w.n_expert, n, k, stream_handle(x))
+        rc = getattr(lib(), entry)(x2.data_ptr(), sel.data_ptr(), *ptrs, *_table_words(w.kind),
+                                   y.data_ptr(), s, w.n_expert, n, k, stream_handle(x))
         check(rc, entry)
-        LAUNCHES[entry] += 1
+        LAUNCHES[_counter(w.kind, experts=True)] += 1
     return y

@@ -25,11 +25,19 @@ order (no TPU tile transpose): per 2-D weight [N, K], rows contiguous,
               fifth bit of element 32g+l)
 - kind=Q6_K : ql u8 [N, K/2], qh u8 [N, K/4], sc i8 [N, S, 16], d f32 [N, S]
               (x = d*sc*(q-32) over 16-element groups)
+- kind=IQ4_NL: qs u8 [N, K/2], d f16 [N, K/32]   (x = d*kvalues_iq4nl[q];
+              Q4_0's nibble order)
+- kind=IQ4_XS: qs u8 [N, K/2], d f32 [N, K/32]   (d = the block's d times its
+              signed 6-bit sub-scale ls − 32, folded in at load)
+- the table carrier (IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M,
+  TQ1_0, TQ2_0): qs u8 [N, K/2] of 4-bit indices into the kind's sorted
+  value table `IQ_TABLES[kind]` (Q4_0's nibble order), d f32 [N, K/g] per
+  group of g = 32 weights (16 for IQ2_XS, IQ2_S, IQ1_M): x = d*table[q],
+  bit-exact with the reference dequantize_row_* (quant/iq.py).
 - F32 / F16 / BF16: a dense tensor.
 
 These are the JAX package's field names, dtypes and shapes. Other kinds
-raise NotImplementedError: they are queued in ROADMAP.md (queue B, row B1,
-the other qmm bodies).
+raise NotImplementedError.
 
 An MoE expert stack [E, N, K] is one QTensor with `n_expert` = E: `shape`
 stays one expert's (N, K) and every field carries a leading [E] axis, as in
@@ -46,10 +54,17 @@ import torch
 
 from ..gguf.constants import QK_K, GGMLType
 from ..quant.blocks import _blocks, _f32, unpack_q3_K_scales, unpack_scale_min_k4
+from ..quant.iq import IQ_TABLES, TABLE_KINDS, carrier
 
-# GGUF kinds with a packed layout (and a hand-written qmm kernel) in the port
+# GGUF kinds with a packed layout (and a hand-written qmm kernel) in the port:
+# the legacy and K-quant kinds, whose GGUF fields are kept (scales unpacked),
 PACKED_KINDS = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
                 GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K)
+# and the IQ / TQ kinds: 4-bit codes into a ≤16-value table, f32 (IQ4_NL:
+# f16) scales per 32 or 16 weights
+IQ_KINDS = (GGMLType.IQ4_NL, GGMLType.IQ4_XS, *sorted(TABLE_KINDS))
+__all__ = ["IQ_KINDS", "IQ_TABLES", "PACKED_KINDS", "QTensor", "TABLE_KINDS", "from_gguf_tensor",
+           "repack"]
 
 
 @dataclass
@@ -85,15 +100,17 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
+def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...], device=None) -> QTensor:
     """raw: uint8 packed GGUF data for a row-major [N, K] tensor, or an
     expert stack [E, N, K]: repacked as (E·N, K), then the expert axis is
-    put back onto every field."""
+    put back onto every field. `device`: where the table carrier's codes
+    are computed and kept (the CPU by default; the other kinds repack on
+    the CPU)."""
     if len(shape) == 1:
         shape = (1, shape[0])
     if len(shape) == 3:
         e, n, k = shape
-        qt = repack(raw, kind, (e * n, k))
+        qt = repack(raw, kind, (e * n, k), device)
         return QTensor(kind, (n, k), {key: a.reshape(e, n, *a.shape[1:])
                                       for key, a in qt.arrays.items()}, n_expert=e)
     if len(shape) != 2:
@@ -156,9 +173,26 @@ def repack(raw: np.ndarray, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
             "sc": _t(b["scales"].reshape(n, s, 16)),
             "d": _t(_f32(b["d"]).reshape(n, s)),
         })
+    if kind == GGMLType.IQ4_NL:
+        b = _blocks(raw, kind)
+        return QTensor(kind, (n, k), {"qs": _t(b["qs"].reshape(n, k // 2)),
+                                      "d": _t(b["d"].reshape(n, k // 32))})
+    if kind == GGMLType.IQ4_XS:
+        # per-32 effective scales d·(ls − 32) in f32; the 16-byte qs of each
+        # 32-weight group is then IQ4_NL's (dequantize_row_iq4_xs)
+        b = _blocks(raw, kind)
+        ib = np.arange(8)
+        ls_l = (b["scales_l"][:, ib // 2] >> (4 * (ib % 2))[None, :]) & 0x0F
+        ls_h = (b["scales_h"][:, None] >> (2 * ib)[None, :]) & 3
+        ls = (ls_l | (ls_h << 4)).astype(np.int32) - 32
+        dl = _f32(b["d"])[:, None] * ls.astype(np.float32)  # [nb, 8]
+        return QTensor(kind, (n, k), {"qs": _t(b["qs"].reshape(n, k // 2)),
+                                      "d": _t(dl.reshape(n, k // 32))})
+    if kind in TABLE_KINDS:
+        return QTensor(kind, (n, k), carrier(raw, kind, n, k, device))
     raise NotImplementedError(
-        f"repack {kind.name}: only {', '.join(k.name for k in PACKED_KINDS)} are ported "
-        "(ROADMAP.md queue B, row B1)")
+        f"repack {kind.name}: the port packs "
+        f"{', '.join(k.name for k in PACKED_KINDS + IQ_KINDS)}")
 
 
 def _bf16(raw: np.ndarray, np_shape) -> torch.Tensor:
@@ -166,19 +200,18 @@ def _bf16(raw: np.ndarray, np_shape) -> torch.Tensor:
     return torch.from_numpy(u16.view(np.int16).copy()).view(torch.bfloat16)
 
 
-def from_gguf_tensor(raw: np.ndarray, kind: GGMLType,
-                     np_shape: tuple[int, ...]) -> QTensor | torch.Tensor:
+def from_gguf_tensor(raw: np.ndarray, kind: GGMLType, np_shape: tuple[int, ...],
+                     device=None) -> QTensor | torch.Tensor:
     """Convert one GGUF tensor to a QTensor (packed kinds) or a dense tensor.
 
-    np_shape is the row-major numpy shape (reversed ggml ne)."""
+    np_shape is the row-major numpy shape (reversed ggml ne); `device` as
+    for `repack`."""
     if kind == GGMLType.F32:  # copies: raw may be a read-only mmap view
         return torch.from_numpy(np.ascontiguousarray(raw).view("<f4").reshape(np_shape).copy())
     if kind == GGMLType.F16:
         return torch.from_numpy(np.ascontiguousarray(raw).view("<f2").reshape(np_shape).copy())
     if kind == GGMLType.BF16:
         return _bf16(raw, np_shape)
-    if kind in PACKED_KINDS:
-        return repack(raw, kind, np_shape)
-    raise NotImplementedError(
-        f"GGUF tensor kind {kind.name}: not ported yet (ROADMAP.md queue B, "
-        "row B1, the other qmm bodies)")
+    if kind in PACKED_KINDS or kind in IQ_KINDS:
+        return repack(raw, kind, np_shape, device)
+    raise NotImplementedError(f"GGUF tensor kind {kind.name}: no packed layout in the port")

@@ -1,5 +1,6 @@
 """GGUF block records of the kinds this port runs (Q4_0, Q4_1, Q5_0, Q5_1,
-Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K).
+Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K; the IQ kinds IQ4_NL, IQ4_XS, IQ2_XXS,
+IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M and the ternary TQ1_0, TQ2_0).
 
 The block dtypes, `_blocks`, `_f32`, `unpack_scale_min_k4`,
 `unpack_q3_K_scales` and the IQ4_NL
@@ -31,6 +32,23 @@ DT = {
          ("qs", "u1", (128,))]),
     GGMLType.Q6_K: np.dtype(
         [("ql", "u1", (128,)), ("qh", "u1", (64,)), ("scales", "i1", (16,)), ("d", "<f2")]),
+    GGMLType.IQ4_NL: np.dtype([("d", "<f2"), ("qs", "u1", (16,))]),
+    GGMLType.IQ4_XS: np.dtype(
+        [("d", "<f2"), ("scales_h", "<u2"), ("scales_l", "u1", (4,)), ("qs", "u1", (128,))]),
+    GGMLType.IQ2_XXS: np.dtype([("d", "<f2"), ("qs", "<u2", (32,))]),
+    GGMLType.IQ2_XS: np.dtype([("d", "<f2"), ("qs", "<u2", (32,)), ("scales", "u1", (8,))]),
+    GGMLType.IQ2_S: np.dtype(
+        [("d", "<f2"), ("qs", "u1", (64,)), ("qh", "u1", (8,)), ("scales", "u1", (8,))]),
+    GGMLType.IQ3_XXS: np.dtype([("d", "<f2"), ("qs", "u1", (96,))]),
+    GGMLType.IQ3_S: np.dtype(
+        [("d", "<f2"), ("qs", "u1", (64,)), ("qh", "u1", (8,)), ("signs", "u1", (32,)),
+         ("scales", "u1", (4,))]),
+    GGMLType.IQ1_S: np.dtype([("d", "<f2"), ("qs", "u1", (32,)), ("qh", "<u2", (8,))]),
+    # no d field: the f16 super-scale is scattered over the top nibbles of the
+    # four 16-bit scale words (dequantize_row_iq1_m)
+    GGMLType.IQ1_M: np.dtype([("qs", "u1", (32,)), ("qh", "u1", (16,)), ("scales", "u1", (8,))]),
+    GGMLType.TQ1_0: np.dtype([("qs", "u1", (48,)), ("qh", "u1", (4,)), ("d", "<f2")]),
+    GGMLType.TQ2_0: np.dtype([("qs", "u1", (64,)), ("d", "<f2")]),
 }
 
 # the 16 non-linear IQ4_NL levels (ggml-quants.c kvalues_iq4nl)

@@ -1,8 +1,10 @@
 """Torch dequantization of QTensors (counterpart of quant/jax_dequant.py).
 
 Bit-exact with the reference dequantize_row_q4_0 / _q4_1 / _q5_0 / _q5_1 /
-_q8_0 / _q2_K / _q3_K / _q4_K / _q5_K / _q6_K (the JAX package's
-quant/ref_numpy.py): the products are taken in f32 in the same order.
+_q8_0 / _q2_K / _q3_K / _q4_K / _q5_K / _q6_K and the IQ / TQ kinds' (the
+JAX package's quant/ref_numpy.py): the products are taken in f32 in the
+same order; an IQ / TQ weight is table[code] × its group's scale, one
+product (quant/iq.py).
 Used by the plain qmm version and the embedding row gather.
 """
 
@@ -11,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..gguf.constants import GGMLType
+from .blocks import KVALUES_IQ4NL
+from .iq import IQ_TABLES
 
 
 def _nibbles_k(qs: torch.Tensor, n: int, s: int) -> torch.Tensor:
@@ -97,7 +101,19 @@ def dequant_fields(kind: GGMLType, f: dict[str, torch.Tensor],
         q = q.reshape(n, s, 16, 16).float()
         y = q * f["sc"].float()[..., None] * f["d"][:, :, None, None]
         return y.reshape(n, s * 256).to(dtype)
-    raise NotImplementedError(f"dequant {kind.name} (ROADMAP.md queue B, B1)")
+    if kind in IQ_TABLES or kind in (GGMLType.IQ4_NL, GGMLType.IQ4_XS):
+        # value = table[nibble] × the scale of its group of g weights; the
+        # nibbles in Q4_0's order (byte j: weight j low, j + 16 high)
+        qs, d = f["qs"], f["d"]
+        n, k = qs.shape[0], qs.shape[1] * 2
+        table = KVALUES_IQ4NL if kind not in IQ_TABLES else IQ_TABLES[kind]
+        lut = torch.as_tensor(table, dtype=torch.float32, device=qs.device)
+        b = qs.reshape(n, k // 32, 16)
+        q = lut[torch.cat([b & 0x0F, b >> 4], dim=-1).long()]  # [N, K/32, 32]
+        g = k // d.shape[-1]
+        y = q.reshape(n, k // g, g) * d.float()[:, :, None]
+        return y.reshape(n, k).to(dtype)
+    raise NotImplementedError(f"dequant {kind.name}")
 
 
 def dequant(qt, dtype=torch.float32) -> torch.Tensor:

@@ -29,7 +29,7 @@ from ..gguf.reader import GGUFModel
 from ..models.deepseek2 import split_kv_b
 from ..models.llama import LlamaConfig
 from ..models.registry import arch_spec, config_from_gguf
-from ..ops.qtensor import PACKED_KINDS, QTensor, from_gguf_tensor
+from ..ops.qtensor import IQ_KINDS, PACKED_KINDS, QTensor, from_gguf_tensor
 from ..tokenizer import Tokenizer, Vocab
 
 log = logging.getLogger(__name__)
@@ -215,7 +215,11 @@ def _split_fused(params: dict[str, Any], cfg: LlamaConfig, spec) -> None:
             layer["ffn_up"] = _row_slice(up, ff, 2 * ff)
 
 
-def load_model(path: str) -> LoadedModel:
+def load_model(path: str, device=None) -> LoadedModel:
+    """`device`: where the IQ / TQ kinds' table carriers are decomposed and
+    kept (`ops/qtensor.py::repack`; the CPU by default). The card does it in
+    a fraction of the host's time for a multi-GB model; every other tensor
+    is repacked on the CPU and moved by the context."""
     gm = GGUFModel.load(path)
     cfg = config_from_gguf(gm.kv)
     spec = arch_spec(cfg.arch)
@@ -224,14 +228,14 @@ def load_model(path: str) -> LoadedModel:
         _refuse_unported(name)
         if name in _GLOBAL_TENSORS:
             params[_GLOBAL_TENSORS[name]] = from_gguf_tensor(
-                info.data, info.ggml_type, info.np_shape)
+                info.data, info.ggml_type, info.np_shape, device)
             continue
         if name.startswith("blk."):
             _, idx, rest = name.split(".", 2)
             key = _LAYER_TENSORS.get(rest)
             if key is not None:
                 params["layers"][int(idx)][key] = from_gguf_tensor(
-                    info.data, info.ggml_type, info.np_shape)
+                    info.data, info.ggml_type, info.np_shape, device)
                 continue
         log.warning("unmapped tensor %s", name)
     _split_fused(params, cfg, spec)
@@ -259,7 +263,9 @@ def _dense_from_numpy(a: np.ndarray) -> torch.Tensor:
 def params_from_numpy(tree, device="cpu"):
     """The JAX loader's params (before its convert_params_to_kernel) → this
     port's tree on `device`. Packed leaves are recognized by duck typing
-    (`.kind`, `.shape`, `.arrays` of numpy arrays)."""
+    (`.kind`, `.shape`, `.arrays` of numpy arrays); their fields, the IQ4
+    nibbles and the table carrier's codes and scales among them, carry
+    across unchanged."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -268,9 +274,8 @@ def params_from_numpy(tree, device="cpu"):
         return None
     if hasattr(tree, "arrays") and hasattr(tree, "kind"):
         kind = GGMLType(int(tree.kind))
-        if kind not in PACKED_KINDS:
-            raise NotImplementedError(
-                f"params_from_numpy: {kind.name} (ROADMAP.md queue B, row B1)")
+        if kind not in PACKED_KINDS and kind not in IQ_KINDS:
+            raise NotImplementedError(f"params_from_numpy: {kind.name} has no packed layout")
         return QTensor(kind, tuple(int(s) for s in tree.shape),
                        {k: _dense_from_numpy(np.asarray(a)).to(device)
                         for k, a in tree.arrays.items()}, int(getattr(tree, "n_expert", 0)))

@@ -547,9 +547,10 @@ def build(args: argparse.Namespace, model=None):
     """(engine, server, httpd) for parsed arguments, the engine not yet
     started; `model` skips loading args.model when it is already loaded."""
     if model is None:
+        from .. import resolve_device
         from ..runtime.loader import load_model
 
-        model = load_model(args.model)
+        model = load_model(args.model, resolve_device(args.device))
     engine = Engine(model, n_slots=args.parallel, n_ctx_per_slot=args.ctx_size,
                     kv_layout=args.kv_layout, page_size=args.kv_page_size,
                     kv_dtype=args.cache_type_k, kv_v_dtype=args.cache_type_v,

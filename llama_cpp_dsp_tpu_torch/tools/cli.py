@@ -77,7 +77,7 @@ def main(argv=None, model: LoadedModel | None = None) -> int:
         return 1
     t0 = time.perf_counter()
     try:
-        model = model or load_model(args.model)
+        model = model or load_model(args.model, device)
     except (OSError, ValueError, NotImplementedError) as e:
         print(f"error: failed to load model: {e}", file=sys.stderr)
         return 1

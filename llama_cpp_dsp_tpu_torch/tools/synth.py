@@ -6,8 +6,10 @@ GGUF file so the port's loader, CLI and server run on it. The blocks are
 random bits with small finite f16 scales — no quantizer runs — so a
 full-width 8B file is written in seconds; decode cost does not depend on
 weight values. The ftype picks each tensor's kind: every matrix Q4_0, Q4_1
-or Q8_0, or llama.cpp's Q2_K / Q3_K_M / Q4_K_M / Q5_K_M mix (`tensor_type`,
-with its block-size fallback for rows whose K is not a multiple of 256).
+or Q8_0, or llama.cpp's Q2_K / Q3_K_M / Q4_K_M / Q5_K_M mix or IQ / TQ mix
+(IQ4_NL, IQ4_XS, IQ2_XXS, IQ2_XS, IQ2_S, IQ2_M, IQ3_XXS, IQ3_XS, IQ3_S,
+IQ3_M, IQ1_S, IQ1_M, TQ1_0, TQ2_0; `tensor_type`, with its block-size
+fallback for rows whose K is not a multiple of 256).
 The vocab is a synthetic SPM one, or a byte-level BPE one in the style of
 llama-3 ("llama-bpe"), DeepSeek ("deepseek-llm") or Qwen ("qwen2", with a
 ChatML template). The Qwen family's files carry q/k/v biases (qwen2,
@@ -202,7 +204,13 @@ UNIT_EXPERTS = (256, 2)  # routed expert width, shared experts (qwen2moe's)
 _D_MAX = {GGMLType.Q4_0: 0.02, GGMLType.Q4_1: 0.02, GGMLType.Q5_0: 0.01,
           GGMLType.Q5_1: 0.01, GGMLType.Q8_0: 1.25e-3, GGMLType.Q4_K: 5.5e-4,
           GGMLType.Q5_K: 2.8e-4, GGMLType.Q6_K: 7e-5, GGMLType.Q2_K: 9.5e-3,
-          GGMLType.Q3_K: 2.5e-3}
+          GGMLType.Q3_K: 2.5e-3,
+          # the IQ / TQ kinds over random bits (their sub-scales and grid
+          # entries included): rms ≈ 0.054 as well
+          GGMLType.IQ4_NL: 1.4e-3, GGMLType.IQ4_XS: 7.5e-5, GGMLType.IQ2_XXS: 1.75e-3,
+          GGMLType.IQ2_XS: 1.67e-3, GGMLType.IQ2_S: 1.66e-3, GGMLType.IQ3_XXS: 6.6e-4,
+          GGMLType.IQ3_S: 6.7e-4, GGMLType.IQ1_S: 1.3e-2, GGMLType.IQ1_M: 1.3e-2,
+          GGMLType.TQ1_0: 0.115, GGMLType.TQ2_0: 0.115}
 # K-quant mins: each group's 6-bit min equals its scale and dmin = d·mean(q),
 # so every 32-element group d·sc·q − dmin·mn is zero-mean, as Q4_0's q − 8
 # is. Random mins would give each group a common offset; the offsets of two
@@ -216,12 +224,32 @@ _M_PER_D = {GGMLType.Q4_1: -7.5, GGMLType.Q5_1: -15.5}
 def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) -> np.ndarray:
     """Random GGUF blocks (uint8) for a [N, K] tensor (or [E, N, K]): random
     bits with the f16 block scales set small and finite (`_D_MAX`,
-    `_DMIN_PER_D`)."""
+    `_DMIN_PER_D`). Random bits are valid blocks of every kind (each grid
+    index is in range, each decoded value in the kind's table); where they
+    would give every group of a kind a common offset, the bits are drawn so
+    that groups are zero-mean: IQ4_NL's d takes a random sign (its codebook's
+    mean is −5.9), TQ2_0's codes come from {0, 1, 2} as the encoder writes
+    them (code 3 decodes to +2). An F16 tensor (the IQ kinds' block-size
+    fallback) is Gaussian with the same rms."""
+    if kind == GGMLType.F16:
+        return (rng.standard_normal(math.prod(shape), dtype=np.float32)
+                * np.float32(0.054)).astype(np.float16).view(np.uint8)
     n_blocks = math.prod(shape) // GGML_TYPE_TRAITS[kind].block_size
     raw = rng.integers(0, 256, size=n_blocks * DT[kind].itemsize, dtype=np.uint8)
     blocks = raw.view(DT[kind])
     d = rng.random(n_blocks, dtype=np.float32) * np.float32(_D_MAX[kind])
+    if kind == GGMLType.IQ4_NL:
+        d = np.where(rng.random(n_blocks) < 0.5, -d, d)
+    if kind == GGMLType.IQ1_M:  # the f16 d in the top nibbles of the four scale words
+        bits = d.astype(np.float16).view(np.uint16)
+        sc = blocks["scales"].view("<u2").reshape(n_blocks, 4)
+        for i in range(4):
+            sc[:, i] = (sc[:, i] & 0x0FFF) | (((bits >> (4 * i)) & 0xF) << 12)
+        return raw
     blocks["d"] = d.astype(np.float16)
+    if kind == GGMLType.TQ2_0:
+        u = rng.integers(0, 3, size=(n_blocks, 64, 4), dtype=np.uint8)
+        blocks["qs"] = (u << (2 * np.arange(4, dtype=np.uint8))).sum(axis=-1, dtype=np.uint8)
     if kind in _M_PER_D:
         blocks["m"] = (d * np.float32(_M_PER_D[kind])).astype(np.float16)
     if kind in _DMIN_PER_D:
@@ -246,10 +274,12 @@ def synth_raw(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) 
     return raw
 
 
-def synth_qtensor(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...]) -> QTensor:
+def synth_qtensor(rng: np.random.Generator, kind: GGMLType, shape: tuple[int, ...],
+                  device=None) -> QTensor:
     """Random packed blocks with small finite scales (half-sane dequant); a
-    3-D shape [E, N, K] gives an expert stack."""
-    return repack(synth_raw(rng, kind, shape), kind, shape)
+    3-D shape [E, N, K] gives an expert stack. `device`: where a table
+    kind's carrier is computed (`repack`)."""
+    return repack(synth_raw(rng, kind, shape), kind, shape, device)
 
 
 _SPM_SPECIALS = (("<unk>", 2), ("<s>", 3), ("</s>", 3))  # (text, UNKNOWN / CONTROL)
@@ -409,12 +439,23 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
-FTYPES = ("Q4_0", "Q4_1", "Q8_0", "Q2_K", "Q3_K_M", "Q4_K_M", "Q5_K_M")
+FTYPES = ("Q4_0", "Q4_1", "Q8_0", "Q2_K", "Q3_K_M", "Q4_K_M", "Q5_K_M",
+          "IQ4_NL", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ2_M", "IQ3_XXS", "IQ3_XS",
+          "IQ3_S", "IQ3_M", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0")
 # an ftype's default kind (the JAX package's tools/quantize.py FTYPE_DEFAULT_TYPE)
 _DEFAULT_KIND = {"Q2_K": GGMLType.Q2_K, "Q3_K_M": GGMLType.Q3_K, "Q4_K_M": GGMLType.Q4_K,
-                 "Q5_K_M": GGMLType.Q5_K}
+                 "Q5_K_M": GGMLType.Q5_K, "IQ2_M": GGMLType.IQ2_S, "IQ3_XS": GGMLType.IQ3_S,
+                 "IQ3_M": GGMLType.IQ3_S,
+                 **{f: GGMLType[f] for f in ("IQ4_NL", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S",
+                                             "IQ3_XXS", "IQ3_S", "IQ1_S", "IQ1_M", "TQ1_0",
+                                             "TQ2_0")}}
+# the low-bit IQ ftypes and the 3-bit ones (quantize.py:131-134)
+_IQ_LOW = ("IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ2_M")
+_IQ3 = ("IQ3_XXS", "IQ3_XS", "IQ3_S", "IQ3_M")
+_KQUANT = ("Q2_K", "Q3_K_M", "Q4_K_M", "Q5_K_M")
 # llama.cpp's kind for a row length K that is not a multiple of the chosen
-# kind's block (the JAX package's tools/quantize.py:81-89, :220-227)
+# kind's block (the JAX package's tools/quantize.py:81-89, :220-227); a kind
+# without a row here (the IQ / TQ kinds) falls back to F16
 _FALLBACK = {GGMLType.Q2_K: GGMLType.Q4_0, GGMLType.Q3_K: GGMLType.Q4_1,
              GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q5_K: GGMLType.Q5_1,
              GGMLType.Q6_K: GGMLType.Q8_0}
@@ -423,36 +464,54 @@ _FALLBACK = {GGMLType.Q2_K: GGMLType.Q4_0, GGMLType.Q3_K: GGMLType.Q4_1,
 def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
                 k: int = 0, n_gqa: int = 1, tied: bool = False) -> GGMLType:
     """The kind of tensor `name` (row length k) in a file of `ftype`. Q4_0 /
-    Q4_1 / Q8_0: every matrix that kind. The K-quant mixes: llama_tensor_get_type's
-    rows (the JAX package's tools/quantize.py:121-228), with attn_v and
-    ffn_down counted by layer index (one of each a layer): the LM head Q6_K
-    (with `tied`, a file without output.weight, token_embd is the LM head and
-    takes its kind, quantize.py:136); attn_v Q4_K (Q2_K at
-    n_gqa ≥ 4, else Q3_K), Q5_K in layers 0-1 then Q4_K (Q3_K_M), or Q6_K
-    in the use_more_bits layers (Q4_K_M, Q5_K_M); every ffn_down (a dense
-    one, an expert stack's, a shared expert's) Q3_K (Q2_K), Q5_K in the
-    first n_layers/16 layers then Q4_K (Q3_K_M), or Q6_K where use_more_bits
-    (Q4_K_M, Q5_K_M); attn_output Q3_K (Q2_K) or Q4_K (Q3_K_M); a fused
-    attn_qkv Q4_K (Q3_K_M), Q5_K (Q4_K_M) or Q6_K (Q5_K_M); with 8
-    experts (Mixtral) attn_k and attn_v Q8_0 and attn_output Q5_K; the rest
-    the ftype's kind. Then the block-size fallback: a K-quant whose block
-    does not divide k becomes Q4_0 (from Q2_K), Q4_1 (Q3_K), Q5_0 (Q4_K),
-    Q5_1 (Q5_K) or Q8_0 (Q6_K), as DeepSeek-V2-Lite's K = 1408 expert rows
-    and K = 10944 dense ffn_down do."""
+    Q4_1 / Q8_0: every matrix that kind. The K-quant and IQ / TQ mixes:
+    llama_tensor_get_type's rows (the JAX package's tools/quantize.py:
+    121-228), with attn_v and ffn_down counted by layer index (one of each a
+    layer). The LM head (with `tied`, a file without output.weight,
+    token_embd is the LM head and takes its kind, quantize.py:136): Q8_0
+    where the default kind's block does not divide k, Q5_K for the low-bit
+    IQ ftypes (IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS, IQ2_S, IQ2_M), else Q6_K. The
+    low-bit IQ ftypes: token_embd Q2_K, attn_v Q4_K, attn_k IQ3_S; the IQ3
+    ftypes: attn_v Q4_K at n_gqa ≥ 4, else IQ3_S. The K-quant mixes: attn_v
+    Q4_K (Q2_K at n_gqa ≥ 4, else Q3_K), Q5_K in layers 0-1 then Q4_K
+    (Q3_K_M), or Q6_K in the use_more_bits layers (Q4_K_M, Q5_K_M); every
+    ffn_down (a dense one, an expert stack's, a shared expert's) Q3_K (Q2_K),
+    Q5_K in the first n_layers/16 layers then Q4_K (Q3_K_M), or Q6_K where
+    use_more_bits (Q4_K_M, Q5_K_M); attn_output Q3_K (Q2_K) or Q4_K
+    (Q3_K_M); a fused attn_qkv Q4_K (Q3_K_M), Q5_K (Q4_K_M) or Q6_K
+    (Q5_K_M); with 8 experts (Mixtral) attn_k and attn_v Q8_0 (every mix but
+    the low-bit IQ ones, and the IQ3 ones' attn_v) and attn_output Q5_K (the
+    K-quant mixes); the rest the ftype's kind. Then the block-size
+    fallback: a kind whose block does not divide k becomes Q4_0 (from Q2_K),
+    Q4_1 (Q3_K), Q5_0 (Q4_K), Q5_1 (Q5_K), Q8_0 (Q6_K) or F16 (the IQ / TQ
+    kinds), as DeepSeek-V2-Lite's K = 1408 expert rows and K = 10944 dense
+    ffn_down do."""
     if ftype in ("Q4_0", "Q4_1", "Q8_0"):
         return GGMLType[ftype]
     if ftype not in FTYPES:
         raise ValueError(f"ftype {ftype!r}: one of {FTYPES}")
     kind = _DEFAULT_KIND[ftype]
     layer = int(name.split(".")[1]) if name.startswith("blk.") else 0
+    iq_low, iq3 = ftype in _IQ_LOW, ftype in _IQ3
     if name == "output.weight" or (tied and name == "token_embd.weight"):
-        kind = GGMLType.Q6_K
+        if k % GGML_TYPE_TRAITS[kind].block_size:
+            kind = GGMLType.Q8_0
+        else:
+            kind = GGMLType.Q5_K if iq_low else GGMLType.Q6_K
+    elif iq_low and name == "token_embd.weight":
+        kind = GGMLType.Q2_K
+    elif iq_low and ("attn_v.weight" in name or "attn_k.weight" in name):
+        kind = GGMLType.Q4_K if "attn_v.weight" in name else GGMLType.IQ3_S
+    elif iq3 and "attn_v.weight" in name:
+        kind = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.IQ3_S
+    elif name == "token_embd.weight":
+        pass
     elif "attn_v.weight" in name:
         if ftype == "Q2_K":
             kind = GGMLType.Q4_K if n_gqa >= 4 else GGMLType.Q3_K
         elif ftype == "Q3_K_M":
             kind = GGMLType.Q5_K if layer < 2 else GGMLType.Q4_K
-        elif use_more_bits(layer, n_layers):
+        elif ftype in ("Q4_K_M", "Q5_K_M") and use_more_bits(layer, n_layers):
             kind = GGMLType.Q6_K
         if n_expert == 8:
             kind = GGMLType.Q8_0
@@ -464,11 +523,12 @@ def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
             kind = GGMLType.Q3_K
         elif ftype == "Q3_K_M":
             kind = GGMLType.Q5_K if layer < n_layers // 16 else GGMLType.Q4_K
-        elif use_more_bits(layer, n_layers):
+        elif ftype in ("Q4_K_M", "Q5_K_M") and use_more_bits(layer, n_layers):
             kind = GGMLType.Q6_K
     elif "attn_output.weight" in name:
         if n_expert == 8:
-            kind = GGMLType.Q5_K
+            if ftype in _KQUANT:
+                kind = GGMLType.Q5_K
         elif ftype == "Q2_K":
             kind = GGMLType.Q3_K
         elif ftype == "Q3_K_M":
@@ -477,7 +537,7 @@ def tensor_type(ftype: str, name: str, n_layers: int, n_expert: int = 0,
         kind = {"Q3_K_M": GGMLType.Q4_K, "Q4_K_M": GGMLType.Q5_K,
                 "Q5_K_M": GGMLType.Q6_K}.get(ftype, kind)
     if k % GGML_TYPE_TRAITS[kind].block_size:
-        kind = _FALLBACK[kind]
+        kind = _FALLBACK.get(kind, GGMLType.F16)
     return kind
 
 

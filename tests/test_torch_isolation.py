@@ -175,6 +175,42 @@ def test_port_imports_with_jax_blocked():
     assert int(res.stdout.split()[-1]) >= 34
 
 
+def test_iq_kinds_run_with_jax_blocked():
+    """The IQ / TQ kinds with JAX blocked: the port's own grids file and
+    carrier (`quant/iq_grids.py`, `quant/iq.py`) repack every kind, the
+    plain product and selected-expert path run, and a unit IQ2_M file
+    (IQ2_S, IQ3_S, Q4_K, Q2_K, Q5_K) goes through a prompt and a decode step."""
+    res = _run("""
+        import tempfile
+        import numpy as np
+        import torch
+        from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm, qmm_expert_rows
+        from llama_cpp_dsp_tpu_torch.ops.qtensor import IQ_KINDS
+        from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
+        from llama_cpp_dsp_tpu_torch.quant.iq_grids import grids
+        from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
+        from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
+        from llama_cpp_dsp_tpu_torch.tools.synth import synth_qtensor, unit_config, write_synth_gguf
+        assert len(grids()) == 6
+        rng = np.random.default_rng(0)
+        for kind in IQ_KINDS:
+            w = synth_qtensor(rng, kind, (8, 512))
+            assert dequant(w).isfinite().all() and qmm(torch.ones(3, 512), w).shape == (3, 8)
+            stack = synth_qtensor(rng, kind, (4, 8, 256))
+            sel = torch.tensor([3, 0], dtype=torch.int32)
+            assert qmm_expert_rows(torch.ones(2, 256), stack, sel).shape == (2, 8)
+        path = tempfile.mkdtemp() + "/m.gguf"
+        write_synth_gguf(path, unit_config("llama"), "IQ2_M", vocab="qwen2")
+        ctx = LlamaContext(load_model(path), n_ctx=16, device="cpu")
+        ctx.eval_tokens([1, 2, 3])
+        assert np.isfinite(ctx.eval_tokens([4])).all()
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print("ok")
+    """, ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
 def test_chip_smoke_refuses_without_card_or_port(tmp_path):
     # no CUDA device here: non-zero exit and no result line
     res = _run("import chip_smoke; sys.exit(chip_smoke.main([]))", ROOT)
