@@ -14,9 +14,11 @@ Phases:
            DeepSeek-V2-Lite's shapes too; qmm Q2_K/Q3_K: the Qwen2.5-7B and
            Qwen3-8B shapes, their expert kernels at Qwen3-30B-A3B's; decode
            attention at H 28 over Hkv 4 too; the decode kernels at head_dim
-           256 with Gemma-3-12B's heads; the causal prefill kernel B4 at the
-           Gemma-3-12B, Gemma-2-9B, Llama-3-8B and Qwen2.5-7B shapes, with
-           windows, chunks, softcaps and stale rows; qmm for the 11 IQ / TQ
+           256 with Gemma-3-12B's heads; the causal prefill kernel B4 (its
+           tensor-core kernel over bf16 / f16 rows, its CUDA-core kernel over
+           f32) at the Gemma-3-12B, Gemma-2-9B, Llama-3-8B and Qwen2.5-7B
+           shapes, with windows, chunks, softcaps and stale rows, timed at
+           Gemma-3-12B's and Llama-3-8B's prefills; qmm for the 11 IQ / TQ
            kinds at the Llama-3-8B shapes, their expert kernels at
            Qwen3-30B-A3B's), with its stated
            tolerance and, where it has one, a planted fault that the
@@ -946,18 +948,86 @@ def prefill_cost(h, hkv, d, t, n_past: int, window: int, chunk: int, kv_itemsize
     return nbytes, 4.0 * h * d * visible
 
 
-def check_flash_prefill(records):
-    """flash_prefill (B4) against flash_prefill_plain on the card over
-    PREFILL_CASES: per-slot NMSE (over [T, H, D]) ≤ FLASH_NMSE_TOL, with a
-    planted fault the limit must catch (a window one row wider: the SWA
-    bound off by one; without a window, every query one row later: the
-    causal limit one row late, whose stale 1e30 row gives a non-finite
-    output). Timed at Gemma-3-12B's two layer kinds (T 1500, a bf16 cache)
-    and summed over its 48 layers, beside the plain version,
-    scaled_dot_product_attention with the same boolean mask and GQA, and
-    the f32-operation bound."""
+def prefill_single_pass_bf16(q, k, v, n_past, *, scale: float, softcap: float = 0.0,
+                             swa_window: int = 0, attn_chunk: int = 0):
+    """The plain version with q·scale and p each rounded once to bf16 and no
+    lo terms: what a single-pass bf16 tensor-core kernel computes (the
+    softmax's sum l from the unrounded p, as such kernels keep it). B4's
+    split operands exist to stay clear of this error."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops import softcap as apply_softcap
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import causal_mask
+
+    b, t, h, d = q.shape
+    hkv = k.shape[1]
+    pos = n_past[:, None] + torch.arange(t, dtype=torch.int32, device=q.device)
+    mask = causal_mask(pos, k.shape[2], n_past, swa_window, attn_chunk)
+    qb = (q.float() * scale).to(torch.bfloat16).float().reshape(b, t, hkv, h // hkv, d)
+    sc = torch.einsum("bthrd,bhsd->bhrts", qb, k.float())
+    if softcap:
+        sc = apply_softcap(sc, softcap)
+    sc = sc.masked_fill(~mask[:, None, None], float("-inf"))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).permute(0, 3, 1, 2, 4)
+    out = torch.einsum("bhrts,bhsd->bthrd", p.to(torch.bfloat16).float(), v.float()) / l
+    return out.reshape(b, t, h, d)
+
+
+def _prefill_times(gen, label, h, hkv, d, t, cap, window, dtype, n_past=0):
+    """B4, its plain version and scaled_dot_product_attention (the same
+    boolean mask and GQA) on one layer of (h, hkv, d) at t queries from
+    n_past over a `cap`-row cache of `dtype`, cold in L2; with the layer's
+    bytes and operations, its bound on the tensor cores (bf16 operations at
+    989 TFLOP/s) and on the CUDA cores (f32 at 67)."""
     import torch
     import torch.nn.functional as F
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_prefill, flash_prefill_plain
+
+    itemsize = {"bf16": 2, "f16": 2, "f32": 4}[dtype]
+    nbytes, flops = prefill_cost(h, hkv, d, t, n_past, window, 0, itemsize)
+    sets = [_prefill_inputs(gen, 1, h, hkv, d, t, (n_past,), cap, dtype, 1.0, False)
+            for _ in range(n_copies(2 * hkv * cap * d * itemsize))]
+    pos = n_past + torch.arange(t, device="cuda")
+    j = torch.arange(n_past + t, device="cuda")
+    mask = j[None, :] <= pos[:, None]
+    if window:
+        mask &= j[None, :] > pos[:, None] - window
+    sc = d ** -0.5
+    kw = {"scale": sc, "swa_window": window}
+    ms = time_ms(lambda q, k, v, n: flash_prefill(q, k, v, n, **kw), sets, iters=10)
+    pms = time_ms(lambda q, k, v, n: flash_prefill_plain(q, k, v, n, **kw), sets, iters=5)
+    lms = time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
+        q.transpose(1, 2).to(k.dtype), k[:, :, :n_past + t], v[:, :, :n_past + t],
+        attn_mask=mask, scale=sc, enable_gqa=True), sets, iters=10)
+    tc, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    split, _ = bound_ms(nbytes, 2 * flops, BF16_FLOPS)  # q_hi·k + q_lo·k, P_hi·V + P_lo·V
+    f32, _ = bound_ms(nbytes, flops, F32_FLOPS)
+    print(f"  flash_prefill {label} layer ({dtype} rows), {t} tokens from {n_past}: kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms; bound {tc:.4f} ms on the "
+          f"tensor cores ({by}; {split:.4f} with the split's products), {f32:.4f} ms in f32 "
+          f"({flops / 1e9:.2f} GFLOP, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s useful)")
+    del sets
+    return {"ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": tc, "bound_by": by,
+            "bound_split_ms": split, "bound_f32_ms": f32}
+
+
+def check_flash_prefill(records):
+    """flash_prefill (B4) against flash_prefill_plain on the card over
+    PREFILL_CASES: per-slot NMSE (over [T, H, D]) ≤ FLASH_NMSE_TOL, with
+    planted faults the limit must catch: a window one row wider (the SWA
+    bound off by one); without a window, every query one row later (the
+    causal limit one row late, whose stale 1e30 row gives a non-finite
+    output); and, where the rows are bf16 or f16 (the tensor-core kernel),
+    q and p rounded once to bf16 with no lo terms (a single-pass kernel).
+    Timed at Gemma-3-12B's two layer kinds (T 1500, a bf16 cache) summed
+    over its 48 layers, Llama-3-8B's layer (T 512, bf16) over its 32, and the
+    f32-row kernel at the "Llama-3-8B f32 continued" shape, each beside its
+    plain version, scaled_dot_product_attention with the same boolean mask
+    and GQA, and its tensor-core and f32-operation bounds."""
+    import torch
 
     from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_prefill, flash_prefill_plain
 
@@ -974,6 +1044,8 @@ def check_flash_prefill(records):
                 q, k, v, np_, **{**kw, "swa_window": window + 1})}
         else:
             faults = {"causal limit one row late": flash_prefill_plain(q, k, v, np_ + 1, **kw)}
+        if dtype != "f32":
+            faults["q and p rounded once to bf16"] = prefill_single_pass_bf16(q, k, v, np_, **kw)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         errs = slot_nmse(got, want)
@@ -992,37 +1064,24 @@ def check_flash_prefill(records):
         worst = [max(worst[0], err), max(worst[1], max(errs))]
         del q, k, v, got, want, faults
     # time: Gemma-3-12B's layer kinds at a 1500-token prompt (n_past 0)
-    h, hkv, d, t, cap = 16, 8, 256, 1500, 2048
-    sc = d ** -0.5
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    by = "operations"
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+              "bound_split_ms": 0.0, "bound_f32_ms": 0.0}
     for (kind, window), n_layers in zip((("SWA", 1024), ("full", 0)), GEMMA3_LAYERS):
-        nbytes, flops = prefill_cost(h, hkv, d, t, 0, window, 0, 2)
-        kv_bytes = 2 * hkv * cap * d * 2
-        sets = [_prefill_inputs(gen, 1, h, hkv, d, t, (0,), cap, "bf16", 1.0, False)
-                for _ in range(n_copies(kv_bytes))]
-        pos = torch.arange(t, device="cuda")
-        j = torch.arange(t, device="cuda")
-        mask = j[None, :] <= pos[:, None]
-        if window:
-            mask &= j[None, :] > pos[:, None] - window
-        kw = {"scale": sc, "swa_window": window}
-        ms = time_ms(lambda q, k, v, n: flash_prefill(q, k, v, n, **kw), sets, iters=10)
-        pms = time_ms(lambda q, k, v, n: flash_prefill_plain(q, k, v, n, **kw), sets, iters=5)
-        lms = time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
-            q.transpose(1, 2).to(k.dtype), k[:, :, :t], v[:, :, :t], attn_mask=mask, scale=sc,
-            enable_gqa=True), sets, iters=10)
-        bms, by = bound_ms(nbytes, flops, F32_FLOPS)
-        print(f"  flash_prefill Gemma-3-12B {kind} layer, {t} tokens: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} "
-              f"GFLOP, {flops / ms / 1e9:.1f} TFLOP/s)")
-        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms)):
-            totals[key] += n_layers * val
-        del sets
-    print(f"  flash_prefill per Gemma-3-12B prefill of {t} tokens (48 layers): "
+        r = _prefill_times(gen, f"Gemma-3-12B {kind}", 16, 8, 256, 1500, 2048, window, "bf16")
+        for key in totals:
+            totals[key] += n_layers * r[key]
+        by = r["bound_by"]
+    print(f"  flash_prefill per Gemma-3-12B prefill of 1500 tokens (48 layers): "
           + ", ".join(f"{k} {v:.3f}" for k, v in totals.items()))
+    # Llama-3-8B (D 128) over its 32 layers; the f32-row kernel on one layer
+    r = _prefill_times(gen, "Llama-3-8B", 32, 8, 128, 512, 512, 0, "bf16")
+    d128 = {k: (32 * v if k.endswith("ms") else v) for k, v in r.items()}
+    print(f"  flash_prefill per Llama-3-8B prefill of 512 tokens (32 layers): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in d128.items() if k.endswith("ms")))
+    f32_rows = _prefill_times(gen, "Llama-3-8B f32 continued", 32, 8, 128, 300, 1024, 0,
+                              "f32", n_past=200)
     records["flash_prefill"].update(max_abs_err=worst[0], max_nmse=worst[1], bound_by=by,
-                                    **totals)
+                                    d128=d128, f32_rows=f32_rows, **totals)
 
 
 # the decode kernels at D = 256: Gemma-3-12B's heads, B = 4 ragged slots
@@ -3160,8 +3219,9 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("by_row_type", "d256", "carrier_bound_ms")
-                           if k in r}})
+                        **{k: r[k] for k in ("by_row_type", "d256", "carrier_bound_ms",
+                                             "bound_split_ms", "bound_f32_ms", "d128",
+                                             "f32_rows") if k in r}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -266,7 +266,7 @@ def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, memo):
     if not (isinstance(fused, QTensor) and fused.kind == GGMLType.Q4_0
             and type(cache) is KVCache and cache.k[0].dtype == torch.bfloat16):
         return None
-    if "attn_q_bias" in layer or cfg.qk_norm:
+    if cfg.qk_norm or any(f"attn_{part}_bias" in layer for part in "qkv"):
         return None
     rp = cfg.layer_rope(layer_idx)
     if rp.mode != "norm" or rp.n_dims != d or d != HEAD_DIM:
@@ -290,8 +290,9 @@ def _try_attn_fused(x, layer, cfg, positions, cache, layer_idx, n_past, memo):
 
 
 def _project_qkv(x, layer: Params, cfg: LlamaConfig, positions, layer_idx: int):
-    """QKV projections (fused or separate), each plus its bias when the
-    layer has one (a bias is applied whenever present, as JAX's `_mm`), the
+    """QKV projections (fused or separate), each plus its own bias where the
+    layer has one (as JAX's unfused `_mm` and upstream's llama graph; JAX's
+    fused branch adds all three only when attn_q_bias is present), the
     per-head q/k rms norm when cfg.qk_norm (a norm weight in a file without
     the flag stays unused, as in JAX), and the layer's rope. Returns
     q [B,T,H,D], k [B,T,Hkv,D], v [B,T,Hkv,D]."""
@@ -304,10 +305,8 @@ def _project_qkv(x, layer: Params, cfg: LlamaConfig, positions, layer_idx: int):
         q = qmm(x, layer["attn_q"])
         k = qmm(x, layer["attn_k"])
         v = qmm(x, layer["attn_v"])
-    if "attn_q_bias" in layer:
-        q = q + layer["attn_q_bias"]
-        k = k + layer["attn_k_bias"]
-        v = v + layer["attn_v_bias"]
+    biases = (layer.get(f"attn_{part}_bias") for part in "qkv")
+    q, k, v = (y if bias is None else y + bias for y, bias in zip((q, k, v), biases))
     q = q.reshape(b, t, h, d)
     k = k.reshape(b, t, hkv, d)
     v = v.reshape(b, t, hkv, d)

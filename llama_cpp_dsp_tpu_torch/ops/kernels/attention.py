@@ -305,7 +305,9 @@ def flash_prefill(q, k, v, n_past, *, scale: float, softcap: float = 0.0,
     (rows [0, n_past + T) written), n_past [B] int32 → [B,T,H,D] f32. Query t
     attends rows j ≤ n_past + t, and j > n_past + t − swa_window (swa_window >
     0) or j ≥ ⌊(n_past + t) / attn_chunk⌋·attn_chunk (attn_chunk > 0); rows past
-    n_past + T are never read."""
+    n_past + T are never read. The C entry takes bf16 and f16 rows to the
+    split-operand tensor-core kernel and f32 rows (or two different row
+    types, both taken in f32) to the CUDA-core kernel (csrc/flash_prefill.cu)."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, n_past, scale=scale, softcap=softcap,
                                    swa_window=swa_window, attn_chunk=attn_chunk)

@@ -28,6 +28,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attn_fused import attn_decode_fused
 from llama_cpp_dsp_tpu_torch.ops.qtensor import from_gguf_tensor
 from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams, _rope_angles
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 D, K_DIM, S = 128, 256, 128
 ROW_ATOL = 1e-2

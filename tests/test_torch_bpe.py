@@ -22,6 +22,7 @@ from llama_cpp_dsp_tpu_torch.tokenizer.bpe import PRE_REGEXES, BpeTokenizer, reg
 from llama_cpp_dsp_tpu_torch.tokenizer.unicode_re import translate
 from llama_cpp_dsp_tpu_torch.tools.synth import bpe_vocab
 from test_tokenizer_reference import MODELS_DIR
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CORPUS = [
     "Hello world! It's a test, isn't it? I'VE got 12345 apples.",

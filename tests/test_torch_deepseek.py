@@ -29,6 +29,7 @@ from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType as TGGMLType
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from llama_cpp_dsp_tpu_torch.tools import synth
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LOGIT_RTOL = 2e-2
 TINY = dataclasses.replace(synth.DEEPSEEK_V2_LITE, n_layers=3, n_embd=256, n_heads=4,

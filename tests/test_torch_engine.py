@@ -23,6 +23,7 @@ from llama_cpp_dsp_tpu_torch.runtime.engine import Engine, Request, SlotState
 from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from model_builder import build_tiny_llama
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N_CTX = 64
 ENGINE_KW = dict(n_slots=2, n_ctx_per_slot=N_CTX, prefill_buckets=(16,))

@@ -13,6 +13,7 @@ import torch
 from llama_cpp_dsp_tpu.ops.pallas.attention import flash_decode as jax_flash_decode
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 D, S = 128, 256
 

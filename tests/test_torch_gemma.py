@@ -41,6 +41,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from llama_cpp_dsp_tpu_torch.tools import synth
 from test_torch_qwen import _jax_logits, _port_logits, _recorded_tensors, _rel, _same_tree
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LOGIT_RTOL = 2e-2
 FILES = {  # name → (arch, ftype)
@@ -71,6 +72,21 @@ def models(ggufs):
     from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 
     return {name: (load_model(p), jax_load_model(p)) for name, p in ggufs.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_logits(models):
+    """name → JAX's logits of TOKENS (a 34-token prefill, four decode
+    steps), computed once a module: the parity test and the negative
+    controls of a model share them."""
+    memo = {}
+
+    def get(name):
+        if name not in memo:
+            memo[name] = _jax_logits(models[name][1], TOKENS, N_PREFILL)
+        return memo[name]
+
+    return get
 
 
 _CFG_FIELDS = ("arch", "n_layers", "n_embd", "n_heads", "n_kv_heads", "head_dim", "n_ff",
@@ -125,11 +141,11 @@ def test_gguf_loads_like_jax(models, name):
 
 
 @pytest.mark.parametrize("name", list(FILES))
-def test_forward_prefill_and_decode_match_jax(models, name):
+def test_forward_prefill_and_decode_match_jax(models, jax_logits, name):
     from llama_cpp_dsp_tpu_torch.runtime.context import convert_params_to_kernel
 
-    pm, jm = models[name]
-    want = _jax_logits(jm, TOKENS, N_PREFILL)
+    pm = models[name][0]
+    want = jax_logits(name)
     before = dict(LAUNCHES)
     params = convert_params_to_kernel(pm.params)
     got = _port_logits(params, pm.cfg, TOKENS, N_PREFILL)
@@ -145,13 +161,13 @@ def test_forward_prefill_and_decode_match_jax(models, name):
     ("gemma3-q4_k_m", {"rope_local_base": 0.0}),
     ("gemma3-q4_k_m", {"swa_window": 0}),
 ])
-def test_negative_controls_fail_the_tolerance(models, name, control):
+def test_negative_controls_fail_the_tolerance(models, jax_logits, name, control):
     """The flags move the logits far past the tolerance: the parity above
     would catch a port that dropped any of them."""
     from llama_cpp_dsp_tpu_torch.runtime.context import convert_params_to_kernel
 
-    pm, jm = models[name]
-    want = _jax_logits(jm, TOKENS, N_PREFILL)
+    pm = models[name][0]
+    want = jax_logits(name)
     cfg = dataclasses.replace(pm.cfg, **control)
     assert _rel(_port_logits(convert_params_to_kernel(pm.params), cfg, TOKENS, N_PREFILL),
                 want) > 2 * LOGIT_RTOL

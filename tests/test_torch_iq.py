@@ -44,6 +44,7 @@ from llama_cpp_dsp_tpu_torch.ops.qtensor import IQ_KINDS, from_gguf_tensor, repa
 from llama_cpp_dsp_tpu_torch.quant import iq, iq_grids
 from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
 from llama_cpp_dsp_tpu_torch.tools.synth import synth_raw
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NMSE_TOL = 5e-4
 KINDS = [GGMLType[k.name] for k in IQ_KINDS]

@@ -28,6 +28,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import qmm as kqmm
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from llama_cpp_dsp_tpu_torch.tools import synth
 from test_torch_qwen import _jax_logits, _port_logits, _recorded_tensors, _rel, _same_tree
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LOGIT_RTOL = 2e-2
 FILES = {"llama-iq4_xs": ("llama", "IQ4_XS"), "llama-iq2_m": ("llama", "IQ2_M"),

@@ -25,6 +25,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import (qmm, qmm_expert_rows,
                                                      qmm_expert_rows_plain, qmm_plain)
 from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams, _rope_angles
 from llama_cpp_dsp_tpu_torch.tools.synth import synth_qtensor
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 

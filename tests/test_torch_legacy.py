@@ -25,6 +25,7 @@ from llama_cpp_dsp_tpu_torch.gguf.constants import GGMLType as TGGMLType
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels import qmm as kqmm
 from llama_cpp_dsp_tpu_torch.ops.qtensor import repack
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 KINDS = [GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1]
 NMSE_TOL = 5e-4

@@ -32,6 +32,7 @@ from llama_cpp_dsp_tpu_torch.runtime.context import LlamaContext
 from llama_cpp_dsp_tpu_torch.runtime.loader import LoadedModel, load_model, params_from_numpy
 from model_builder import build_tiny_llama
 from test_torch_q4_kv import B, D, HKV, S, np_of, run_writes, same_planes
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LOGIT_RTOL = 2e-2
 

@@ -44,6 +44,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (mla_flash_decode,
 from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
 from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache
 from llama_cpp_dsp_tpu_torch.runtime.loader import params_from_numpy
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 DECODE_RTOL = 1e-5
 ATTN_RTOL = 1e-2

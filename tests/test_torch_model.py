@@ -38,6 +38,7 @@ from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache
 from llama_cpp_dsp_tpu_torch.runtime.loader import load_model, params_from_numpy
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from model_builder import build_tiny_llama
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 MODELS = {
     "q4_0": dict(qtype=GGMLType.Q4_0),
@@ -141,9 +142,9 @@ def _jax_logits(jm, tokens, n_prefill):
     return np.concatenate(outs)
 
 
-def _port_logits(pm, tokens, n_prefill):
+def _port_logits(pm, tokens, n_prefill, fuse=True):
     cfg = pm.cfg
-    params = convert_params_to_kernel(pm.params)
+    params = convert_params_to_kernel(pm.params) if fuse else pm.params
     cache = KVCache.create(cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim)
     outs = []
     for lo, hi in ((0, n_prefill), *((i, i + 1) for i in range(n_prefill, len(tokens)))):
@@ -279,3 +280,48 @@ def test_loader_refuses_unported_tensors(tmp_path, monkeypatch):
                       ("ffn_post_norm", "ffn_post_norm"), ("post_ffw_norm", "ffn_post_norm")):
         assert port_loader._LAYER_TENSORS[f"{name}.weight"] == key
         assert jax_loader._LAYER_TENSORS[f"{name}.weight"] == key
+
+
+@pytest.mark.parametrize("biases", [("k", "v"), ("q",)])
+def test_qkv_biases_each_apply_like_jax_mm(tmp_path, monkeypatch, biases):
+    """A llama file whose layers carry only some of the q / k / v biases:
+    each present bias is added (JAX's unfused `_mm`, which the JAX forward
+    takes on loaded params), on the port's fused q|k|v branch as on the
+    separate one; without them the logits leave the tolerance."""
+    from llama_cpp_dsp_tpu_torch.models.llama import LlamaConfig
+    from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
+    from llama_cpp_dsp_tpu_torch.tools import synth
+
+    cfg = LlamaConfig(arch="llama", n_layers=2, n_embd=64, n_heads=2, n_kv_heads=1,
+                      head_dim=32, n_ff=128, n_vocab=300, n_ctx_train=64,
+                      rope=RopeParams(n_dims=32))
+    rng = np.random.default_rng(11)
+    base = synth.GGUFWriter
+
+    class Writer(base):
+        def add_tensor(self, name, data, **kw):
+            super().add_tensor(name, data, **kw)
+            m = re.fullmatch(r"blk\.(\d+)\.attn_norm\.weight", name)
+            for part in biases if m else ():
+                rows = cfg.n_heads * cfg.head_dim if part == "q" else cfg.head_dim
+                super().add_tensor(f"blk.{m[1]}.attn_{part}.bias",
+                                   rng.standard_normal(rows).astype(np.float32))
+
+    monkeypatch.setattr(synth, "GGUFWriter", Writer)
+    path = str(tmp_path / "bias.gguf")
+    synth.write_synth_gguf(path, cfg, "Q8_0")
+    tokens, n_prefill = [1, 72, 101, 108, 108, 111, 33], 5
+    want = _jax_logits(jax_load_model(path), tokens, n_prefill)
+    pm = load_model(path)
+    assert all(sorted(k for k in layer if k.endswith("_bias"))
+               == [f"attn_{p}_bias" for p in biases] for layer in pm.params["layers"])
+    assert "attn_qkv_fused" in convert_params_to_kernel(pm.params)["layers"][0]
+    fused = _port_logits(pm, tokens, n_prefill)
+    scale = np.abs(want).max()
+    assert np.abs(fused - want).max() / scale < LOGIT_RTOL
+    separate = _port_logits(pm, tokens, n_prefill, fuse=False)
+    assert np.abs(separate - want).max() / scale < LOGIT_RTOL
+    for layer in pm.params["layers"]:
+        for p in biases:
+            del layer[f"attn_{p}_bias"]
+    assert np.abs(_port_logits(pm, tokens, n_prefill) - want).max() / scale > LOGIT_RTOL

@@ -44,6 +44,7 @@ from llama_cpp_dsp_tpu_torch.ops.qtensor import QTensor, repack
 from llama_cpp_dsp_tpu_torch.ops.rope import RopeParams
 from llama_cpp_dsp_tpu_torch.runtime.loader import params_from_numpy
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 NMSE_TOL = 5e-4
 FFN_RTOL = 1e-3

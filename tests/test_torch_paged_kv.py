@@ -21,6 +21,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (
     flash_decode_paged, flash_decode_paged_q8)
 from llama_cpp_dsp_tpu_torch.runtime.paged_kv import (
     PageAllocator, PagedKVCache, PagedQ4KVCache, PagedQuantKVCache, PagedSeq)
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 L, HKV, PS, D = 2, 2, 8, 32
 N_PAGES, N_SEQS, MAX_BLOCKS = 16, 3, 4

@@ -13,6 +13,8 @@ package's Pallas kernels in interpret mode.
   against the JAX entries of the same names; tolerances as
   tests/test_torch_flash_decode.py (2e-5 f32 rows, 2e-3 bf16) and
   tests/test_torch_q4_kv.py / test_torch_paged_kv.py (1e-5).
+- The numeric design of B4's tensor-core kernel (q and p split into two
+  bf16 terms each) emulated on the CPU against `flash_prefill_plain`.
 - On CPU tensors every wrapper takes its plain version (no launch counted).
 """
 
@@ -25,6 +27,7 @@ from llama_cpp_dsp_tpu.ops.pallas import attention as jatt
 from llama_cpp_dsp_tpu.runtime import kv_cache as jkv
 from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 STALE = 1e30
 
@@ -82,6 +85,63 @@ def test_flash_prefill_rules():
     assert swa[0, 0].nonzero()[:, 0].tolist() == [7, 8, 9, 10]
     assert chunked[0].sum(-1).tolist() == [3, 4, 5, 6, 7, 8, 1, 2, 3, 4]
     assert not full[0, :, 20:].any()  # never a row past n_past + T
+
+
+def _split_emulation(q, k, v, n_past, *, scale, softcap, window, lo_terms, chunk=32):
+    """The tensor-core kernel's arithmetic (csrc/flash_prefill.cu) on the
+    CPU: q·scale and each chunk's p = exp(s − m) rounded to a bf16 hi term
+    plus, with lo_terms, a bf16 lo term (x − hi, rounded), products of the
+    terms with the bf16 rows summed in f32, an online softmax over chunks."""
+    from llama_cpp_dsp_tpu_torch.ops import softcap as apply_softcap
+    from llama_cpp_dsp_tpu_torch.runtime.kv_cache import causal_mask
+
+    b, t, h, d = q.shape
+    hkv, rows = k.shape[1], k.shape[2]
+
+    def terms(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if lo_terms else (hi,)
+
+    qs = terms(q.float().reshape(b, t, hkv, h // hkv, d) * scale)
+    pos = n_past[:, None] + torch.arange(t, dtype=torch.int32)
+    mask = causal_mask(pos, rows, n_past, window)[:, None, None]
+    m = torch.full((b, hkv, h // hkv, t, 1), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, h // hkv, t, d)
+    for c0 in range(0, rows, chunk):
+        kc, vc = k[:, :, c0:c0 + chunk].float(), v[:, :, c0:c0 + chunk].float()
+        sc = sum(torch.einsum("bthrd,bhsd->bhrts", x, kc) for x in qs)
+        if softcap:
+            sc = apply_softcap(sc, softcap)
+        sc = sc.masked_fill(~mask[..., c0:c0 + chunk], float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        base = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha, p = torch.exp(m - base), torch.exp(sc - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + sum(torch.einsum("bhrts,bhsd->bhrtd", x, vc) for x in terms(p))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
+@pytest.mark.parametrize("lo_terms", [True, False], ids=["split", "hi-only"])
+def test_split_bf16_operands_keep_the_chip_limit(lo_terms):
+    """The numeric design of B4's tensor-core kernel: with q and p each
+    split into two bf16 terms the result lies within NMSE 1e-10 of
+    `flash_prefill_plain` (chip_smoke.py holds the kernel to 1e-8); with the
+    hi terms alone (a single-pass bf16 kernel, the fault chip_smoke.py
+    plants) it lies above 1e-8. D 256, 16 heads over 8, T 64 from n_past 40,
+    a 24-row window and a softcap that bends q scaled ×4."""
+    rng = np.random.default_rng(7)
+    h, hkv, d, t, rows = 16, 8, 256, 64, 128
+    q = _t(rng.standard_normal((1, t, h, d)).astype(np.float32)) * 4.0
+    k = _t(rng.standard_normal((1, hkv, rows, d)).astype(np.float32)).bfloat16()
+    v = _t(rng.standard_normal((1, hkv, rows, d)).astype(np.float32)).bfloat16()
+    n_past = torch.tensor([40], dtype=torch.int32)
+    kw = dict(scale=d ** -0.5, softcap=10.0)
+    want = ka.flash_prefill_plain(q, k, v, n_past, swa_window=24, **kw).double()
+    got = _split_emulation(q, k, v, n_past, window=24, lo_terms=lo_terms, **kw).double()
+    err = float(((got - want) ** 2).mean() / (want ** 2).mean())
+    assert (err <= 1e-10) if lo_terms else (err > 1e-8), err
 
 
 D = 256

@@ -27,6 +27,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode_q4
 from llama_cpp_dsp_tpu_torch.quant import kv_planes as pkp
 from llama_cpp_dsp_tpu_torch.runtime import kv_cache as pkv
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 B, HKV, S, D = 3, 2, 16, 64
 

@@ -28,6 +28,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm, qmm_plain
 from llama_cpp_dsp_tpu_torch.ops.qtensor import PACKED_KINDS, from_gguf_tensor
 from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 KINDS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
          GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K]

@@ -19,6 +19,7 @@ from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES
 from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode_q8
 from llama_cpp_dsp_tpu_torch.quant.kv_planes import q8_dequant, q8_quant
 from llama_cpp_dsp_tpu_torch.runtime.kv_cache import KVCache, QuantKVCache, make_kv_cache
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 L, B, HKV, S, D = 2, 3, 2, 16, 32
 

@@ -33,6 +33,7 @@ from llama_cpp_dsp_tpu_torch.serve.chat import apply_chat_template
 from llama_cpp_dsp_tpu_torch.serve.chat_builtin import BUILTIN_TEMPLATES
 from llama_cpp_dsp_tpu_torch.serve.server import Server
 from model_builder import build_tiny_llama
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 AUTH = {"Authorization": "Bearer secret"}
 ENGINE_KW = dict(n_slots=2, n_ctx_per_slot=160, prefill_buckets=(64,))

@@ -26,6 +26,7 @@ from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 from llama_cpp_dsp_tpu_torch.runtime.sampling import make_chain
 from model_builder import build_tiny_llama
 from test_torch_q4_kv import planes
+from torch_fixtures import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 PROMPT = [1, 5, 9, 13, 2, 7, 11]
 
