@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --phases build,kernels   # a short first look
+    python3 chip_smoke.py --phases build,kernels --kernels flash_decode,decode_d256
+                                     # B2's checks and timings alone
 
 Phases:
   build    nvcc builds csrc/*.cu for sm_90a (one process per source).
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, at the llama2-7B shapes (flash decode over bf16, f16 and f32
-           rows; Q4_0 decode at the 7B's and the 8B's heads and capacities
-           512, 4096 and 770; qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
+           rows, B2 also at capacities 770 and 4096 and both cluster sizes,
+           timed beside sdpa at the 8B, Qwen2.5-7B and 8B-CLI shapes; Q4_0
+           decode at the 7B's and the 8B's heads and capacities 512, 4096
+           and 770; qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
            Q4_K_M / Q5_K_M shapes; the Q4_1/Q5_0/Q5_1 kernels and MLA decode:
            DeepSeek-V2-Lite's shapes too; qmm Q2_K/Q3_K: the Qwen2.5-7B and
            Qwen3-8B shapes, their expert kernels at Qwen3-30B-A3B's; decode
@@ -538,13 +542,60 @@ FLASH_NMSE_TOL = 1e-8
 # (query heads, KV heads): the 7B's MHA, the 8B's GQA group 4, Qwen2.5-7B's
 # group 7 (28 over 4, the first group that is not a power of two)
 HEAD_CASES = ((32, 32), (32, 8), (28, 4))
+# B2's further caches: a capacity that is a multiple of nothing the kernel
+# uses, and a 4096-row one; spans of 1 and 5 rows (within a tile: one block
+# folds them), 33 and 65 (clusters with empty parts), and parts that cross
+# many tiles; the SWA starts fall inside a part
+B2_CACHES = {770: ((770, 1, 400, 65), (0, 0, 13, 32)),
+             4096: ((1, 5, 3000, 4096), (0, 3, 1001, 1777))}
+# B2 timed beside the 7B layer (H, Hkv, valid rows of a 512-row cache, layers
+# a token): Llama-3-8B and Qwen2.5-7B layers at 512 rows, and the 8B CLI's
+# own state, ~40 rows
+B2_GQA_ROWS = {"llama3-8b": (32, 8, 512, 32), "qwen2.5-7b": (28, 4, 512, 28),
+               "llama3-8b 40 rows": (32, 8, 40, 32)}
+
+
+def b2_faults(plain, q, k, v, lengths, starts, **kw) -> dict:
+    """The planted faults B2's checks must catch: the first or the last
+    valid row dropped and, on a GQA case, the kv groups shifted (K and V
+    rolled by one along Hkv: each query head reads its neighbour group)."""
+    import torch
+
+    st = torch.zeros_like(lengths) if starts is None else starts
+    faults = {"first row dropped": plain(q, k, v, lengths, st + 1, **kw),
+              "last row dropped": plain(q, k, v, lengths - 1, starts, **kw)}
+    if 1 < k.shape[1] < q.shape[1]:
+        faults["kv groups shifted"] = plain(q, k.roll(1, 1), v.roll(1, 1), lengths, starts, **kw)
+    return faults
+
+
+def kernel_names(fn, iters: int = 30) -> set[str]:
+    """Names of the CUDA kernels fn runs (torch.profiler over `iters` calls:
+    a window of one short call now and then records no CUDA event)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if names:
+            return names
+    fail("torch.profiler recorded no CUDA kernel five times")
 
 
 def check_flash_decode(records):
     import torch
     import torch.nn.functional as F
 
-    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode, flash_decode_plain
+    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (flash_decode,
+                                                                flash_decode_cluster,
+                                                                flash_decode_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, d, s = 4, 32, 128, 512
@@ -560,11 +611,8 @@ def check_flash_decode(records):
                                    ("softcap", None, 30.0)):
             got = flash_decode(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
             want = flash_decode_plain(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
-            st = torch.zeros_like(lengths) if starts is None else starts
-            faults = {"first row dropped": flash_decode_plain(
-                          q, k, v, lengths, st + 1, scale=d ** -0.5, softcap=cap),
-                      "last row dropped": flash_decode_plain(
-                          q, k, v, lengths - 1, starts, scale=d ** -0.5, softcap=cap)}
+            faults = b2_faults(flash_decode_plain, q, k, v, lengths, starts, scale=d ** -0.5,
+                               softcap=cap)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             worst = max(worst, err)
@@ -589,19 +637,47 @@ def check_flash_decode(records):
                                       ("softcap", None, 30.0)):
                 got = flash_decode(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
                 want = flash_decode_plain(q, k, v, lengths, starts, scale=d ** -0.5, softcap=cap)
-                st = torch.zeros_like(lengths) if starts is None else starts
-                faults = {"first row dropped": flash_decode_plain(
-                              q, k, v, lengths, st + 1, scale=d ** -0.5, softcap=cap),
-                          "last row dropped": flash_decode_plain(
-                              q, k, v, lengths - 1, starts, scale=d ** -0.5, softcap=cap)}
+                faults = b2_faults(flash_decode_plain, q, k, v, lengths, starts,
+                                   scale=d ** -0.5, softcap=cap)
                 torch.cuda.synchronize()
                 worst = max(worst, float((got - want).abs().max()))
                 worst_nmse = max(worst_nmse, check_slots(f"flash_decode {label} Hkv={hkv} {case}",
                                                          got, want, faults, FLASH_NMSE_TOL))
+    # capacities 770 and 4096 (B2_CACHES), bf16 and f32 rows, both cluster
+    # sizes as well as the kernel's own choice
+    for cap_rows, (lens, sts) in B2_CACHES.items():
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        swa = torch.tensor(sts, dtype=torch.int32, device="cuda")
+        for hq, hkv in HEAD_CASES:
+            q = torch.randn(b, hq, d, generator=gen, device="cuda")
+            k = torch.randn(b, hkv, cap_rows, d, generator=gen, device="cuda")
+            v = torch.randn(b, hkv, cap_rows, d, generator=gen, device="cuda")
+            for dt in (torch.bfloat16, torch.float32):
+                kt, vt = k.to(dt), v.to(dt)
+                for case, starts, cap in (("full", None, 0.0), ("swa", swa, 0.0),
+                                          ("softcap", None, 30.0), ("swa+softcap", swa, 30.0)):
+                    want = flash_decode_plain(q, kt, vt, ln, starts, scale=d ** -0.5, softcap=cap)
+                    faults = b2_faults(flash_decode_plain, q, kt, vt, ln, starts,
+                                       scale=d ** -0.5, softcap=cap)
+                    for cl in (0, 8, 16):
+                        got = flash_decode_cluster(q, kt, vt, ln, starts, scale=d ** -0.5,
+                                                   softcap=cap, cluster=cl)
+                        torch.cuda.synchronize()
+                        worst = max(worst, float((got - want).abs().max()))
+                        worst_nmse = max(worst_nmse, check_slots(
+                            f"flash_decode S={cap_rows} {str(dt)[6:]} Hkv={hkv} {case} "
+                            f"cluster {cl or 'auto'}", got, want, faults, FLASH_NMSE_TOL))
+    # the entry runs the cluster kernel, never the split kernel or a merge
+    one = torch.tensor([512], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 32, d, generator=gen, device="cuda")
+    k = torch.randn(1, 8, 512, d, generator=gen, device="cuda").to(torch.bfloat16)
+    names = kernel_names(lambda: flash_decode(q, k, k, one, scale=d ** -0.5))
+    print(f"  flash_decode runs: {sorted(names)}")
+    if not (len(names) == 1 and "flash_decode_gqa" in next(iter(names))):
+        fail(f"flash_decode ran {sorted(names)}, not the cluster kernel flash_decode_gqa alone")
     # time: one 7B layer (B=1, Hkv=32) at a full 512-row context, cold
     # caches, per row type
     hkv, L = 32, 512
-    one = torch.tensor([L], dtype=torch.int32, device="cuda")
     by_type = {}
     for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16), ("f32", torch.float32)):
         kv_bytes = 2 * hkv * L * d * dt.itemsize
@@ -615,14 +691,45 @@ def check_flash_decode(records):
         pms = time_ms(lambda q, k, v: flash_decode_plain(q, k, v, one, scale=d ** -0.5), sets)
         lms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.to(dt)[:, :, None], k, v, scale=d ** -0.5), sets)
-        bms, by = bound_ms(kv_bytes + 2 * h * d * 4, 4.0 * h * L * d)
+        bms, by = bound_ms(kv_bytes + 2 * h * d * 4, 4.0 * h * L * d, F32_FLOPS)
         print(f"  flash_decode {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.4f} ms, "
               f"{kv_bytes / ms / 1e6:.0f} GB/s")
         by_type[name] = {"ms": 32 * ms, "plain_ms": 32 * pms, "library_ms": 32 * lms,
                          "bound_ms": 32 * bms}
+    # time: the GQA layers (B2_GQA_ROWS), bf16, B=1, cold caches; the kernel
+    # at its own cluster size and at 8 and 16, sdpa with enable_gqa; 100
+    # calls a figure (a few µs each)
+    gqa = {}
+    for label, (hq, hkv, rows, layers) in B2_GQA_ROWS.items():
+        kv_bytes = 2 * hkv * L * d * 2
+        n = torch.tensor([rows], dtype=torch.int32, device="cuda")
+        sets = [(torch.randn(1, hq, d, generator=gen, device="cuda"),
+                 torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(torch.bfloat16),
+                 torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(torch.bfloat16))
+                for _ in range(n_copies(kv_bytes))]
+        # a first figure of a sequence reads high (the card's clocks): one
+        # warm-up figure, dropped
+        time_ms(lambda q, k, v: flash_decode(q, k, v, n, scale=d ** -0.5), sets, iters=100)
+        row = {"ms": time_ms(lambda q, k, v: flash_decode(q, k, v, n, scale=d ** -0.5), sets,
+                             iters=100)}
+        for cl in (8, 16):
+            row[f"cluster{cl}_ms"] = time_ms(lambda q, k, v: flash_decode_cluster(
+                q, k, v, n, scale=d ** -0.5, cluster=cl), sets, iters=100)
+        row["plain_ms"] = time_ms(
+            lambda q, k, v: flash_decode_plain(q, k, v, n, scale=d ** -0.5), sets)
+        row["library_ms"] = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q.to(torch.bfloat16)[:, :, None], k[:, :, :rows], v[:, :, :rows], scale=d ** -0.5,
+            enable_gqa=True), sets, iters=100)
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * hkv * rows * d * 2 + 2 * hq * d * 4 + 4,
+                                                    4.0 * hq * rows * d, F32_FLOPS)
+        print(f"  flash_decode bf16 {label} layer (H {hq} / Hkv {hkv}, {rows} of {L} rows): "
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in row.items() if k_ != "bound_by")
+              + f" ms; per token ({layers} layers): kernel {layers * row['ms']:.4f}, sdpa "
+              f"{layers * row['library_ms']:.4f}")
+        gqa[label] = {k_: (layers * v_ if k_.endswith("ms") else v_) for k_, v_ in row.items()}
     records["flash_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, **by_type["bf16"],
-                                   bound_by=by, by_row_type=by_type)
+                                   bound_by=by, by_row_type=by_type, gqa=gqa)
 
 
 Q4_CAPACITIES = (512, 4096, 770)  # 770: even, not a multiple of 256 (JAX's gate)
@@ -1094,9 +1201,11 @@ def check_decode_d256(records):
     against their plain versions, B = 4 ragged slots of 512- and 2048-row
     caches, without and with SWA starts (window 1024) and with softcap 50:
     per-slot NMSE ≤ FLASH_NMSE_TOL with the planted faults of D = 128 (first
-    or last valid row dropped; Q4's parity scale planes swapped). Timed at
-    the Gemma-3-12B CLI's decode (1532 rows: 40 SWA layers over 1024 of them,
-    8 full layers), per token."""
+    or last valid row dropped; B2's kv groups shifted; Q4's parity scale
+    planes swapped). B2 also over B2_CACHES (770 and 4096 rows; f32 rows at
+    4096 stream through its ring). Timed at the Gemma-3-12B CLI's decode
+    (1532 rows: 40 SWA layers over 1024 of them, 8 full layers), per token;
+    B2 at both cluster sizes too."""
     import torch
     import torch.nn.functional as F
 
@@ -1113,16 +1222,21 @@ def check_decode_d256(records):
     def swap(dd):  # Q4: each row takes its sibling's scales
         return torch.cat([dd[:, :, g:], dd[:, :, :g]], dim=2)
 
-    def run_case(name, label, kernel, plain, args, lengths, extra_faults=None):
-        swa = torch.clamp(lengths - D256_WINDOW, min=0)
+    def run_case(name, label, kernel, plain, args, lengths, extra_faults=None, swa=None):
+        if swa is None:
+            swa = torch.clamp(lengths - D256_WINDOW, min=0)
         for case, starts, cap in (("full", None, 0.0), ("swa", swa, 0.0),
                                   ("softcap", None, 50.0)):
             got = kernel(*args, lengths, starts, scale=sc, softcap=cap)
             want = plain(*args, lengths, starts, scale=sc, softcap=cap)
             st = torch.zeros_like(lengths) if starts is None else starts
-            faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc, softcap=cap),
-                      "last row dropped": plain(*args, lengths - 1, starts, scale=sc,
-                                                softcap=cap)}
+            if name == "flash_decode":
+                faults = b2_faults(plain, *args, lengths, starts, scale=sc, softcap=cap)
+            else:
+                faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc,
+                                                     softcap=cap),
+                          "last row dropped": plain(*args, lengths - 1, starts, scale=sc,
+                                                    softcap=cap)}
             if extra_faults:
                 for fname, fargs in extra_faults.items():
                     faults[fname] = plain(*fargs, lengths, starts, scale=sc, softcap=cap)
@@ -1160,6 +1274,16 @@ def check_decode_d256(records):
             vpq, vpd = _dense_q8(vp)
             run_case("flash_decode_paged_q8", f"S={s} ps={ps}", ka.flash_decode_paged_q8,
                      ka.flash_decode_paged_q8_plain, (q, kpq, kpd, vpq, vpd, tables), lengths)
+        del q, k, v
+    for s, (lens, sts) in B2_CACHES.items():
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        swa = torch.tensor(sts, dtype=torch.int32, device="cuda")
+        q = torch.randn(4, h, d, generator=gen, device="cuda")
+        k = torch.randn(4, hkv, s, d, generator=gen, device="cuda")
+        v = torch.randn(4, hkv, s, d, generator=gen, device="cuda")
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            run_case("flash_decode", f"S={s} {str(dt)[6:]}", ka.flash_decode,
+                     ka.flash_decode_plain, (q, k.to(dt), v.to(dt)), lengths, swa=swa)
         del q, k, v
 
     # time: the Gemma-3-12B CLI's decode at 1532 rows, B=1: an SWA layer
@@ -1219,10 +1343,15 @@ def check_decode_d256(records):
             extra = 4 * (cap // ps) if "paged" in name else 0  # the table row, int32
             bms, by = bound_ms(2 * hkv * (L - lo) * row_bytes[name] + io + extra,
                                4.0 * h * (L - lo) * d)
-            for k_, v_ in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms)):
-                per_token[k_] += n_layers * v_
-            print(f"  {name} D=256 Gemma-3-12B {kind} layer at {L} rows: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms, library {lms:.4f} ms, bound {bms:.4f} ms")
+            times = {"ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms}
+            if name == "flash_decode":
+                for cl in (8, 16):
+                    times[f"cluster{cl}_ms"] = time_ms(lambda q, k, v: ka.flash_decode_cluster(
+                        q, k, v, one, starts, scale=sc, cluster=cl), arg_sets)
+            for k_, v_ in times.items():
+                per_token[k_] = per_token.get(k_, 0.0) + n_layers * v_
+            print(f"  {name} D=256 Gemma-3-12B {kind} layer at {L} rows: "
+                  + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()) + " ms")
         print(f"  {name} D=256 per Gemma-3-12B token (48 layers): "
               + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in per_token.items()))
         records[name]["d256"] = {**per_token, "bound_by": by, "max_abs_err": worst[name][0],
@@ -1431,10 +1560,15 @@ def require(counts: dict, names: list[str], path: str) -> None:
             fail(f"{name} was not launched on the {path} path")
 
 
+# kernels whose line profile_steps prints even outside the top six: B2
+PROFILE_WATCH = ("flash_decode_gqa",)
+
+
 def profile_steps(fn, steps: int) -> None:
     """Where one step's time goes: host wall time of fn (which runs `steps`
     steps and ends in a host sync; no profiler), and the device time of its
-    kernels by name (torch.profiler, a second call)."""
+    kernels by name (torch.profiler, a second call): the top six, and any
+    kernel PROFILE_WATCH names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1456,9 +1590,11 @@ def profile_steps(fn, steps: int) -> None:
     print(f"    wall {wall_ms:.3f} ms/step, device kernels {dev_ms:.3f} ms/step "
           f"(busy {dev_ms / wall_ms:.1%}), {sum(e.count for e in kernels) / steps:.0f} "
           "kernel launches/step; top kernels:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"      {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
-              f"{e.count / steps:.0f}x  {e.key[:70]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 6 or any(w in e.key for w in PROFILE_WATCH):
+            print(f"      {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
+                  f"{e.count / steps:.0f}x  {e.key[:70]}")
 
 
 def profile_chunk(ctx, token: int, steps: int = 8) -> None:
@@ -3065,6 +3201,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated subset of the kernels phase's checks (default: all): "
+                         "qmm, flash_decode, flash_decode_q4, attn_fused, decode_variants, "
+                         "mla_decode, decode_d256, flash_prefill")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -3125,56 +3265,64 @@ def main(argv=None) -> int:
         files[key][0].unlink(missing_ok=True)
         torch.cuda.empty_cache()
 
-    steps = [("kernels", lambda: (check_qmm("q4_0", QMM_SHAPES_7B, (1, 8, 128),
-                                            DECODE_CALLS_7B, records),
-                                  check_qmm("q8_0", QMM_SHAPES_7B, (1, 8, 128), {}, records),
-                                  check_qmm("q8_0", list(DECODE_CALLS_TINYLLAMA), (1,),
-                                            DECODE_CALLS_TINYLLAMA, records),
-                                  check_qmm("q4_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
-                                            records),
-                                  check_qmm("q6_k", list(DECODE_CALLS_L3_Q6), KQ_BATCHES,
-                                            DECODE_CALLS_L3_Q6, records),
-                                  check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
-                                            records),
-                                  *(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
-                                  *(check_qmm(k, LEGACY_QMM_SHAPES, (1, 8, 128),
-                                              DECODE_CALLS_7B, records)
-                                    for k in ("q4_1", "q5_0", "q5_1")),
-                                  check_qmm("q8_0", [(2048, 10944)], (1, 8, 128), {}, records),
-                                  check_qmm("q3_k", [*QMM_SHAPES_QWEN, (37888, 3584)],
-                                            (1, 8, 128), DECODE_CALLS_QWEN["q3_k"], records),
-                                  check_qmm("q2_k", [*QMM_SHAPES_QWEN, (1024, 4096),
-                                                     (24576, 4096)],
-                                            (1, 8, 128), DECODE_CALLS_QWEN["q2_k"], records),
-                                  *(check_qmm(k, shapes, (1, 8, 128), {}, records)
-                                    for k, shapes in QWEN_KQ_SHAPES.items()),
-                                  *(check_qmm_experts(k, records, n_expert=128,
-                                                      shapes=QWEN_EXPERT_SHAPES,
-                                                      rows=QWEN_EXPERT_ROWS,
-                                                      decode_calls=QWEN_DECODE_CALLS[k], s_time=8)
-                                    for k in QWEN_DECODE_CALLS),
-                                  *(check_qmm_experts(k, records, n_expert=64,
-                                                      shapes=DS_EXPERT_SHAPES,
-                                                      rows=DS_EXPERT_ROWS,
-                                                      decode_calls=DS_DECODE_CALLS[k], s_time=6)
-                                    for k in DS_DECODE_CALLS),
-                                  *(check_qmm_experts(k, records, n_expert=64, shapes=shapes,
-                                                      rows=DS_EXPERT_ROWS, decode_calls={})
-                                    for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
-                                  *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
-                                    for k, shapes in DS_QMM_SHAPES.items()),
-                                  *(check_qmm(k, QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3_IQ,
-                                              records) for k in IQ_KINDS),
-                                  *(check_qmm_experts(k, records, n_expert=128,
-                                                      shapes=QWEN_EXPERT_SHAPES,
-                                                      rows=QWEN_EXPERT_ROWS,
-                                                      decode_calls=QWEN_DECODE_CALLS_IQ,
-                                                      s_time=8)
-                                    for k in IQ_KINDS),
-                                  check_flash_decode(records),
-                                  check_flash_decode_q4(records), check_attn_fused(records),
-                                  check_decode_variants(records), check_mla_decode(records),
-                                  check_decode_d256(records), check_flash_prefill(records))),
+    kernel_checks = {  # name → the kernels phase's checks of that kernel family
+        "qmm": lambda: (check_qmm("q4_0", QMM_SHAPES_7B, (1, 8, 128),
+                                  DECODE_CALLS_7B, records),
+                        check_qmm("q8_0", QMM_SHAPES_7B, (1, 8, 128), {}, records),
+                        check_qmm("q8_0", list(DECODE_CALLS_TINYLLAMA), (1,),
+                                  DECODE_CALLS_TINYLLAMA, records),
+                        check_qmm("q4_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
+                                  records),
+                        check_qmm("q6_k", list(DECODE_CALLS_L3_Q6), KQ_BATCHES,
+                                  DECODE_CALLS_L3_Q6, records),
+                        check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
+                                  records),
+                        *(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
+                        *(check_qmm(k, LEGACY_QMM_SHAPES, (1, 8, 128),
+                                    DECODE_CALLS_7B, records)
+                          for k in ("q4_1", "q5_0", "q5_1")),
+                        check_qmm("q8_0", [(2048, 10944)], (1, 8, 128), {}, records),
+                        check_qmm("q3_k", [*QMM_SHAPES_QWEN, (37888, 3584)],
+                                  (1, 8, 128), DECODE_CALLS_QWEN["q3_k"], records),
+                        check_qmm("q2_k", [*QMM_SHAPES_QWEN, (1024, 4096),
+                                           (24576, 4096)],
+                                  (1, 8, 128), DECODE_CALLS_QWEN["q2_k"], records),
+                        *(check_qmm(k, shapes, (1, 8, 128), {}, records)
+                          for k, shapes in QWEN_KQ_SHAPES.items()),
+                        *(check_qmm_experts(k, records, n_expert=128,
+                                            shapes=QWEN_EXPERT_SHAPES,
+                                            rows=QWEN_EXPERT_ROWS,
+                                            decode_calls=QWEN_DECODE_CALLS[k], s_time=8)
+                          for k in QWEN_DECODE_CALLS),
+                        *(check_qmm_experts(k, records, n_expert=64,
+                                            shapes=DS_EXPERT_SHAPES,
+                                            rows=DS_EXPERT_ROWS,
+                                            decode_calls=DS_DECODE_CALLS[k], s_time=6)
+                          for k in DS_DECODE_CALLS),
+                        *(check_qmm_experts(k, records, n_expert=64, shapes=shapes,
+                                            rows=DS_EXPERT_ROWS, decode_calls={})
+                          for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
+                        *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
+                          for k, shapes in DS_QMM_SHAPES.items()),
+                        *(check_qmm(k, QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3_IQ,
+                                    records) for k in IQ_KINDS),
+                        *(check_qmm_experts(k, records, n_expert=128,
+                                            shapes=QWEN_EXPERT_SHAPES,
+                                            rows=QWEN_EXPERT_ROWS,
+                                            decode_calls=QWEN_DECODE_CALLS_IQ,
+                                            s_time=8)
+                          for k in IQ_KINDS)),
+        "flash_decode": lambda: check_flash_decode(records),
+        "flash_decode_q4": lambda: check_flash_decode_q4(records),
+        "attn_fused": lambda: check_attn_fused(records),
+        "decode_variants": lambda: check_decode_variants(records),
+        "mla_decode": lambda: check_mla_decode(records),
+        "decode_d256": lambda: check_decode_d256(records),
+        "flash_prefill": lambda: check_flash_prefill(records)}
+    checks = list(kernel_checks) if args.kernels is None else args.kernels.split(",")
+    if set(checks) - set(kernel_checks):
+        fail(f"--kernels takes a subset of {','.join(kernel_checks)}")
+    steps = [("kernels", lambda: [kernel_checks[c]() for c in checks]),
              ("small", phase_small),
              ("main", lambda: phase_main(records, files["7b"][0], model_of("7b"))),
              ("serve", lambda: (phase_serve(records, files["7b"][0], model_of("7b")),
@@ -3219,7 +3367,7 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("by_row_type", "d256", "carrier_bound_ms",
+                        **{k: r[k] for k in ("by_row_type", "gqa", "d256", "carrier_bound_ms",
                                              "bound_split_ms", "bound_f32_ms", "d128",
                                              "f32_rows") if k in r}})
     print(card)

@@ -1,6 +1,7 @@
-// Shared device helpers for the port's kernels: bf16 unpacking, warp sums,
-// and the per-block Q4_0 / Q8_0 dot products that qmm.cu and attn_fused.cu
-// both run. Weights are in GGUF block order (ops/qtensor.py):
+// Shared device helpers for the port's kernels: bf16 unpacking, warp sums
+// and maxima, cp.async copies, and the per-block Q4_0 / Q8_0 dot products
+// that qmm.cu and attn_fused.cu both run. Weights are in GGUF block order
+// (ops/qtensor.py):
 //   Q4_0: qs u8 [N, K/2] (byte j of a 32-block: element j low nibble,
 //         element j+16 high nibble), d f16 [N, K/32];  w = d * (q - 8)
 //   Q8_0: qs i8 [N, K],   d f16 [N, K/32];             w = d * q
@@ -21,6 +22,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// 16 bytes global → shared (cp.async.cg, L2 only); ok = false writes zeros
+// and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Unpack one 32-element block of row `qs_row` into w[0..31] (integer values,

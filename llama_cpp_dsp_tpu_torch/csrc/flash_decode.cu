@@ -1,8 +1,9 @@
 // flash_decode.cu — T=1 attention of q[B,H,D] f32 over one slot's cached
 // rows [start_b, length_b); GQA groups of rep = H/Hkv query heads share a kv
-// head; optional logit softcap. Output [B,H,D] f32. One templated split
-// kernel serves the cache layouts:
-//   <BF16|F16|F32, PAGED=false>  k, v [B,Hkv,S,D] of bf16, f16 or f32      flash_decode
+// head; optional logit softcap. Output [B,H,D] f32. The C entry
+// flash_decode (dense rows of bf16, f16 or f32, B2) runs the cluster
+// kernel of flash_decode_gqa.cuh. The other layouts run one templated
+// split kernel:
 //   <I8, PAGED=false>  int8 k, v [B,Hkv,S,D], f32 scales
 //                      kd, vd [B,Hkv,1,S] (one per row)                    flash_decode_q8
 //   <Q4, PAGED=false>  u8 k, v [B,Hkv,S/2,D]: row 2j in the low nibble of
@@ -14,12 +15,12 @@
 //   <I8, PAGED=true>   int8 pools [P,Hkv,ps,D], f32 scales
 //                      [P,Hkv,1,ps], block tables                          flash_decode_paged_q8
 //
-// Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel and
-// ::_decode_kernel_allh (entry flash_decode), ::_decode_kernel_q8 and
-// ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_q4
+// Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel_q8
+// and ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_q4
 // (flash_decode_q4), ::_decode_kernel_paged and ::_decode_kernel_paged_allh
 // (flash_decode_paged), ::_decode_kernel_paged_q8 and
-// ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8).
+// ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8); B2's
+// ::_decode_kernel and ::_decode_kernel_allh through flash_decode_gqa.cuh.
 //
 // Bound on this card: the K/V bytes of the valid rows (and their scales)
 // over the memory rate; a few flops per byte. Design (split-S flash
@@ -52,6 +53,11 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "flash_decode_gqa.cuh"
+
+extern template int gqa::launch_row<gqa::BF16>(const gqa::Args&, int, int, int, cudaStream_t);
+extern template int gqa::launch_row<gqa::F16>(const gqa::Args&, int, int, int, cudaStream_t);
+extern template int gqa::launch_row<gqa::F32>(const gqa::Args&, int, int, int, cudaStream_t);
 
 namespace {
 
@@ -306,13 +312,12 @@ int launch(const DecodeArgs& a, int D, void* out, int B, void* stream) {
     }
 }
 
-// a dense layout of element type `dtype` (RowType 0-2)
-template <bool PAGED>
-int launch_dense(const DecodeArgs& a, int dtype, int D, void* out, int B, void* stream) {
+// pages of element type `dtype` (RowType 0-2)
+int launch_paged(const DecodeArgs& a, int dtype, int D, void* out, int B, void* stream) {
     switch (dtype) {
-        case BF16: return launch<BF16, PAGED>(a, D, out, B, stream);
-        case F16: return launch<F16, PAGED>(a, D, out, B, stream);
-        case F32: return launch<F32, PAGED>(a, D, out, B, stream);
+        case BF16: return launch<BF16, true>(a, D, out, B, stream);
+        case F16: return launch<F16, true>(a, D, out, B, stream);
+        case F32: return launch<F32, true>(a, D, out, B, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -347,22 +352,29 @@ DecodeArgs make_args(const void* q, const void* k, const void* kd, const void* v
 
 }  // namespace
 
-// In every entry: q f32 [B,H,D]; lengths, starts int32 [B] (starts may be
-// null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
-// [B*H*n_splits*2] scratch. D is 128 or 256.
-
-// k, v [B,Hkv,S,D] of element type dtype (0 bf16, 1 f16, 2 f32);
-// n_splits = ceil(S / chunk).
+// B2: k, v [B,Hkv,S,D] of element type dtype (0 bf16, 1 f16, 2 f32); q f32
+// [B,H,D]; lengths, starts int32 [B] (starts may be null = 0); out f32
+// [B,H,D]; D 128 or 256, H / Hkv ≤ 16. cluster: the blocks of a (kv head,
+// slot) pair, 8 or 16, or 0 for the kernel's own choice.
 KERNELS_API int flash_decode(const void* q, const void* k, const void* v, const void* lengths,
-                             const void* starts, void* out, void* ws_acc, void* ws_ml, int B,
-                             int H, int Hkv, int D, int S, int chunk, int dtype, float scale,
-                             float softcap, void* stream) {
-    const int n_splits = (S + chunk - 1) / chunk;
-    return launch_dense<false>(make_args(q, k, nullptr, v, nullptr, nullptr, lengths, starts,
-                                         ws_acc, ws_ml, H, Hkv, S, 0, 0, chunk, n_splits,
-                                         scale, softcap),
-                               dtype, D, out, B, stream);
+                             const void* starts, void* out, int B, int H, int Hkv, int D, int S,
+                             int dtype, int cluster, float scale, float softcap, void* stream) {
+    if (B <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > 16) return (int)cudaErrorInvalidValue;
+    const gqa::Args a{static_cast<const float*>(q), k, v, static_cast<const int*>(lengths),
+                      static_cast<const int*>(starts), static_cast<float*>(out), H, Hkv, S,
+                      scale, softcap};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case BF16: return gqa::launch_row<gqa::BF16>(a, B, D, cluster, st);
+        case F16: return gqa::launch_row<gqa::F16>(a, B, D, cluster, st);
+        case F32: return gqa::launch_row<gqa::F32>(a, B, D, cluster, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
+
+// In the entries below: q f32 [B,H,D]; lengths, starts int32 [B] (starts
+// may be null = 0); out f32 [B,H,D]; ws_acc f32 [B*H*n_splits*D], ws_ml f32
+// [B*H*n_splits*2] scratch. D is 128 or 256.
 
 // kq, vq int8 [B,Hkv,S,D]; kd, vd f32 [B,Hkv,1,S]; n_splits = ceil(S / chunk).
 KERNELS_API int flash_decode_q8(const void* q, const void* kq, const void* kd, const void* vq,
@@ -403,10 +415,10 @@ KERNELS_API int flash_decode_paged(const void* q, const void* k, const void* v,
                                    int pages_per_split, int dtype, float scale, float softcap,
                                    void* stream) {
     const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
-    return launch_dense<true>(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts,
-                                        ws_acc, ws_ml, H, Hkv, ps, max_blocks, n_pages,
-                                        pages_per_split * ps, n_splits, scale, softcap),
-                              dtype, D, out, B, stream);
+    return launch_paged(make_args(q, k, nullptr, v, nullptr, tables, lengths, starts, ws_acc,
+                                  ws_ml, H, Hkv, ps, max_blocks, n_pages,
+                                  pages_per_split * ps, n_splits, scale, softcap),
+                        dtype, D, out, B, stream);
 }
 
 // kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables as above.

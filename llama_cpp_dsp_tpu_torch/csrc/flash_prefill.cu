@@ -180,19 +180,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
                  : "r"(addr));
 }
 
-// 16 bytes global → shared; ok = false writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // byte offset of 16-byte piece c of row `row` in a swizzled [rows][D] tile
 template <int D>
 __device__ __forceinline__ uint32_t swz(int row, int c) {

@@ -47,12 +47,6 @@ constexpr int MAX_QW = 12;         // row words per lane in a dot: C ≤ 2·32·
 constexpr int PS = 20;             // floats per row of probabilities (16 heads, 16-byte rows)
 constexpr int LD_BATCH = 8;        // 16-byte loads a thread keeps in flight while staging
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
 __global__ void __launch_bounds__(NT)
 mla_split(const float* __restrict__ q, const __nv_bfloat16* __restrict__ c,
           const int* __restrict__ lengths, float* __restrict__ ws_acc,

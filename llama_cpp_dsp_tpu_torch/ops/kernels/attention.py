@@ -6,9 +6,13 @@ f32 (`flash_decode`), Q8_0 rows (`flash_decode_q8`), Q4_0 row pairs
 attention over an MLA cache (`mla_flash_decode`, csrc/mla_decode.cu).
 
 Counterpart of the JAX package's ops/pallas/attention.py entries of the same
-names. The five decode entries run one templated CUDA kernel
-(csrc/flash_decode.cu): split-S flash decoding with a log-sum-exp merge of
-the splits. A q8 score
+names. `flash_decode` (B2) runs a cluster kernel (csrc/flash_decode_gqa.cuh):
+a cluster of 8 or 16 blocks a (kv head, slot) pair cuts the valid span into
+even parts on the card, each block streams its part's rows through a
+shared-memory ring once for the whole GQA group, and the parts merge by
+log-sum-exp through distributed shared memory in the same launch. The four
+other decode entries run one templated CUDA kernel (csrc/flash_decode.cu):
+split-S flash decoding with a second launch that merges the splits. A q8 score
 is (q·kq)·kd[row] and a q8 value term (p·vd[row])·vq, as the TPU kernels
 fold the row scales; a q4 score sums kd[row, g]·(q·(k − 8)) over the 32-wide
 groups g and its value term folds vd[row, g] the same way; no cache is
@@ -37,8 +41,10 @@ from ...quant.kv_planes import q4_deq_plane
 from .. import softcap as apply_softcap
 from . import LAUNCHES, aligned16, stream_handle
 
-SPLIT_ROWS = 64  # cache rows per split (one block per split, kv head and slot)
+SPLIT_ROWS = 64  # cache rows per split of the q8, q4 and paged entries
 HEAD_DIMS = (128, 256)  # the kernels' head widths (Llama / Qwen / Mixtral; Gemma)
+MAX_REP = 16  # B2's query heads a kv head
+CLUSTERS = (0, 8, 16)  # B2's blocks a (kv head, slot) pair; 0: the kernel's choice
 _WIDTH_ROW = "ROADMAP.md queue B, item 5"
 _Q8_DTYPES = (torch.int8, torch.float32, torch.int8, torch.float32)
 _Q4_DTYPES = (torch.uint8, torch.float32, torch.uint8, torch.float32)
@@ -123,13 +129,11 @@ def flash_decode_paged_q8_plain(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts
                                  scale=scale, softcap=softcap)
 
 
-def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int,
-            tail: tuple, scale: float, softcap: float) -> torch.Tensor:
-    """Check the operands, allocate output and scratch, launch C entry
-    `name` and count it. planes: the cache operands in the entry's order,
-    dtypes: the dtype each must have."""
-    from .build import check, lib
-
+def _operands(name: str, q, planes, dtypes, tables, lengths, starts):
+    """Check a decode entry's operands; returns q in f32, the lengths, the
+    starts (or None) and the tables (or ()) as the C entries take them.
+    planes: the cache operands in the entry's order, dtypes: the dtype each
+    must have."""
     b, h, d = q.shape
     hkv = planes[0].shape[1]
     if d not in HEAD_DIMS or planes[0].shape[-1] != d or h % hkv or lengths.shape != (b,):
@@ -146,6 +150,18 @@ def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int
     ln = lengths.to(torch.int32).contiguous()
     st = None if starts is None else starts.to(device=q.device, dtype=torch.int32).contiguous()
     tb = () if tables is None else (tables.to(torch.int32).contiguous(),)
+    return qf, ln, st, tb
+
+
+def _launch(name: str, q, planes, dtypes, tables, lengths, starts, n_splits: int,
+            tail: tuple, scale: float, softcap: float) -> torch.Tensor:
+    """Check the operands, allocate output and scratch, launch split-kernel
+    C entry `name` and count it."""
+    from .build import check, lib
+
+    b, h, d = q.shape
+    hkv = planes[0].shape[1]
+    qf, ln, st, tb = _operands(name, q, planes, dtypes, tables, lengths, starts)
     out = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
     ws_acc = torch.empty(b * h * n_splits * d, dtype=torch.float32, device=q.device)
     ws_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32, device=q.device)
@@ -175,12 +191,32 @@ def flash_decode(q, k, v, lengths, starts=None, *, scale: float,
     → [B,H,D] f32."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, starts, scale=scale, softcap=softcap)
-    s = k.shape[2]
-    if k.shape != v.shape or k.shape[0] != q.shape[0]:
+    return flash_decode_cluster(q, k, v, lengths, starts, scale=scale, softcap=softcap)
+
+
+def flash_decode_cluster(q, k, v, lengths, starts=None, *, scale: float, softcap: float = 0.0,
+                         cluster: int = 0) -> torch.Tensor:
+    """B2's launch on the card, as `flash_decode`, with the cluster size
+    given: 8 or 16 blocks a (kv head, slot) pair, or 0 for the kernel's own
+    choice (what `flash_decode` passes)."""
+    from .build import check, lib
+
+    b, h, d = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b:
         raise ValueError(f"flash_decode: k {tuple(k.shape)} v {tuple(v.shape)} q {tuple(q.shape)}")
+    hkv, s = k.shape[1], k.shape[2]
+    if h % hkv == 0 and h // hkv > MAX_REP or cluster not in CLUSTERS:
+        raise ValueError(f"flash_decode: H={h} over Hkv={hkv}, cluster {cluster}: the kernel "
+                         f"takes H / Hkv <= {MAX_REP} and a cluster in {CLUSTERS}")
     k, v, code = _row_type("flash_decode", k, v)
-    return _launch("flash_decode", q, (k, v), (k.dtype,) * 2, None, lengths, starts,
-                   -(-s // SPLIT_ROWS), (s, SPLIT_ROWS, code), scale, softcap)
+    qf, ln, st, _ = _operands("flash_decode", q, (k, v), (k.dtype,) * 2, None, lengths, starts)
+    out = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
+    rc = lib().flash_decode(qf.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(),
+                            None if st is None else st.data_ptr(), out.data_ptr(), b, h, hkv, d,
+                            s, code, cluster, float(scale), float(softcap), stream_handle(q))
+    check(rc, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out
 
 
 def flash_decode_q8(q, k_qs, k_d, v_qs, v_d, lengths, starts=None, *, scale: float,

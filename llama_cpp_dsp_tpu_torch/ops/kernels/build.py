@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -58,8 +59,8 @@ _SIGNATURES = {
     "qmm_experts_q6_k": [_P] * 7 + [_I] * 4 + [_P],
     **{f"qmm_experts_{t}": [_P] * 4 + [_U] * 4 + [_P] + [_I] * 4 + [_P]
        for t in ("tab32_f16", "tab32_f32", "tab16_f32")},
-    # q, k, v, lengths, starts, out, ws_acc, ws_ml; B, H, Hkv, D, S, chunk, row type
-    "flash_decode": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    # q, k, v, lengths, starts, out; B, H, Hkv, D, S, row type, cluster
+    "flash_decode": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     "flash_decode_q8": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     "flash_decode_q4": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     # ... tables ...; B, H, Hkv, D, ps, max_blocks, n_pages, pages_per_split, row type
@@ -110,13 +111,25 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [BUILD_DIR / (src.stem + ".o") for src in sources]
+    t0 = time.monotonic()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
+    ended = {}  # source → (compiler output, seconds from the start to its end)
+
+    def wait(src, p):
+        out, _ = p.communicate()
+        ended[src] = (out, time.monotonic() - t0)
+
+    waiters = [threading.Thread(target=wait, args=a) for a in zip(sources, procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], []
     for src, p in zip(sources, procs):
-        out, _ = p.communicate()
-        logs.append(f"== {src.name}\n{out}")
+        out, secs = ended[src]
+        logs.append(f"== {src.name} ({secs:.1f} s)\n{out}")
         if p.returncode:
             failed.append(src.name)
     build_log = "\n".join(logs)
