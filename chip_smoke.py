@@ -24,10 +24,13 @@ Phases:
            shapes, with windows, chunks, softcaps and stale rows, timed at
            Gemma-3-12B's and Llama-3-8B's prefills; qmm for the 11 IQ / TQ
            kinds at the Llama-3-8B shapes, their expert kernels at
-           Qwen3-30B-A3B's), with its stated
-           tolerance and, where it has one, a planted fault that the
-           tolerance must catch; times of kernel, plain version and a
-           PyTorch yardstick call.
+           Qwen3-30B-A3B's; B1 also at every B of 1-8, a ragged N and, for
+           the 32-block kinds, K 1408 / 10944 / 352, timed at B 1 and 4), with
+           its stated tolerance and, where it has one, a planted fault
+           that the tolerance must catch (B1 at B <= 8 also x rotated
+           inside each 16-element run and rows g / g+8 of a tile
+           swapped); times of kernel, plain version and a PyTorch
+           yardstick call.
   small    a 2-layer head_dim-128 Q4_0 model: logits and greedy stream on
            the card (kernels) against the same model on the CPU (plain).
   main     a full-width llama2-7B-geometry Q4_0 GGUF of random blocks through
@@ -146,12 +149,16 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, arg_sets, iters: int = 30) -> float:
-    """Device time of fn(*args) per call: the summed durations of the CUDA
-    kernels it runs (torch.profiler), cycling over arg_sets (enough copies to
-    exceed L2 where the caller streams weights once). CUDA events around the
-    loop would time the host instead: at decode sizes the host issues a call
-    more slowly than the card runs it; they are the fallback, an upper bound,
-    when the profiler returns no CUDA events three times."""
+    """Device time of fn(*args) per call: the durations of the CUDA kernels
+    it runs (torch.profiler), cycling over arg_sets (enough copies to exceed
+    L2 where the caller streams weights once). A window counts when every
+    kernel in it was recorded at least `iters` times; each kernel then adds
+    its mean duration × its launches per call. A window that lost events is
+    taken again, five times at most; then the last one's summed durations
+    over `iters` (every event it recorded; a lost one reads low). CUDA events
+    around the loop would time the host instead: at decode sizes the host
+    issues a call more slowly than the card runs it; they are the fallback,
+    an upper bound, when the profiler returns no CUDA events five times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -159,15 +166,22 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     for a in arg_sets[:3]:
         fn(*a)
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then returns no CUDA events
+    partial_us = 0.0
+    for _ in range(5):  # the profiler now and then loses or returns no CUDA events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA)
-        if dev_us > 0:
-            return dev_us / 1e3 / iters
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        if evs and all(e.count >= iters for e in evs):
+            return sum(e.self_device_time_total / e.count * round(e.count / iters)
+                       for e in evs) / 1e3
+        partial_us = sum(e.self_device_time_total for e in evs) or partial_us
+    if partial_us > 0:
+        ms = partial_us / 1e3 / iters
+        print(f"  (torch.profiler lost launches in five windows: the last one's sum, {ms:.4f} "
+              "ms, may read low)")
+        return ms
     # CUDA events around the loop: an upper bound (host issue time included)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -176,7 +190,7 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / iters
-    print(f"  (torch.profiler recorded no device time three times: CUDA events, {ms:.4f} ms, "
+    print(f"  (torch.profiler recorded no device time five times: CUDA events, {ms:.4f} ms, "
           "an upper bound)")
     return ms
 
@@ -293,7 +307,31 @@ def planted_qmm_fault(w):
     return QTensor(w.kind, w.shape, {**w.arrays, key: bad}), label
 
 
+def tc_faults(x, w, plain) -> dict:
+    """Faults of the tensor-core GEMV's fragment maps, computed with the
+    plain version: x rotated by one inside each 16-element run (an x
+    fragment map that is off), and rows g and g + 8 of each whole 16-row
+    tile swapped (an A fragment map that is off)."""
+    from llama_cpp_dsp_tpu_torch.ops.kernels.qmm import qmm_plain
+
+    b, k = x.shape
+    n = plain.shape[-1]
+    rot = qmm_plain(x.reshape(b, k // 16, 16).roll(1, dims=-1).reshape(b, k), w)
+    full = n // 16 * 16
+    swapped = plain.clone()
+    tiles = swapped[:, :full].reshape(b, full // 16, 2, 8)
+    swapped[:, :full] = tiles.flip(2).reshape(b, full)
+    return {"x rotated by one inside each 16-element run": rot,
+            "rows g and g+8 of each 16-row tile swapped": swapped}
+
+
 def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0):
+    """B1 against exact f32 and its plain version at every (N, K) of
+    `shapes` and B of `batches`, with the planted faults (the kind's
+    `planted_qmm_fault` and the fragment-map faults of `tc_faults` at B <=
+    8) above the limit; then, where `decode_calls` gives (N, K) calls per
+    token, the device time at B = 1 (with the plain version and the
+    library) and at B = 4, cold in L2."""
     import numpy as np
     import torch
 
@@ -306,8 +344,8 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
     rng = np.random.default_rng(rng_seed)
     gen = torch.Generator(device="cuda").manual_seed(rng_seed)
     worst = worst_nmse = 0.0
-    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "carrier_bytes": 0.0,
-         "flops": 0.0}
+    t = {"ms": 0.0, "ms_b4": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+         "carrier_bytes": 0.0, "flops": 0.0}
     for n, k in shapes:
         w = synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
         w_exact = dequant(w, torch.float32)
@@ -317,38 +355,46 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
             plain = qmm_plain(x, w)
             exact = x.float() @ w_exact.T
             w_bad, label = planted_qmm_fault(w)
-            bad = None if w_bad is None else qmm_plain(x, w_bad)
+            faults = {} if w_bad is None else {label: qmm_plain(x, w_bad)}
+            if b <= 8:
+                faults.update(tc_faults(x, w, plain))
             torch.cuda.synchronize()
             e_exact, e_plain = nmse(got, exact), nmse(got, plain)
             err = float((got - plain).abs().max())
             worst, worst_nmse = max(worst, err), max(worst_nmse, e_plain)
-            e_bad = "" if bad is None else f", planted fault '{label}' {nmse(bad, plain):.2e}"
+            e_bad = {lb: nmse(bad, plain) for lb, bad in faults.items()}
             print(f"  qmm_{kind_name} N={n} K={k} B={b}: nmse vs exact f32 {e_exact:.2e}, "
-                  f"vs plain {e_plain:.2e}, max|kernel-plain| {err:.3e}{e_bad} "
-                  f"(tol nmse {QMM_NMSE_TOL:g})")
+                  f"vs plain {e_plain:.2e}, max|kernel-plain| {err:.3e}"
+                  + "".join(f", planted fault '{lb}' {e:.2e}" for lb, e in e_bad.items())
+                  + f" (tol nmse {QMM_NMSE_TOL:g})")
             if not (e_exact <= QMM_NMSE_TOL and e_plain <= QMM_NMSE_TOL
                     and torch.isfinite(got).all()):
                 fail(f"qmm_{kind_name} N={n} K={k} B={b} disagrees with its plain version")
-            if bad is not None and not nmse(bad, plain) > QMM_NMSE_TOL:
-                fail(f"qmm_{kind_name}: the tolerance would not catch '{label}'")
-            del w_bad, bad
+            for lb, e in e_bad.items():
+                if not e > QMM_NMSE_TOL:
+                    fail(f"qmm_{kind_name}: the tolerance would not catch '{lb}'")
+            del w_bad, faults
         calls = decode_calls.get((n, k), 0)
-        if calls:  # time the decode GEMV (B=1) with the weight cold in L2
+        if calls:  # time the decode GEMV (B=1, and B=4) with the weight cold in L2
             x = torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
+            x4 = torch.randn(4, k, generator=gen, device="cuda").to(torch.bfloat16)
             ws = [w] + [synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
                         for _ in range(n_copies(w.nbytes) - 1)]
             dense = [dequant(wi, torch.bfloat16) for wi in ws[:n_copies(n * k * 2)]]
             ms = time_ms(qmm, [(x, wi) for wi in ws])
+            ms4 = time_ms(qmm, [(x4, wi) for wi in ws], iters=10)
             pms = time_ms(qmm_plain, [(x, wi) for wi in ws], iters=5)
             # yardstick: PyTorch alone on the same packed inputs (dequant, then
             # a bf16 matmul); the dense bf16 matmul alone is printed beside it
             lms = time_ms(lambda a, wi: torch.matmul(a, dequant(wi, torch.bfloat16).T),
                           [(x, wi) for wi in ws], iters=10)
             dms = time_ms(lambda a, m: torch.matmul(a, m.T), [(x, d) for d in dense])
-            print(f"  qmm_{kind_name} N={n} K={k} B=1: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"dequant+matmul {lms:.4f} ms, matmul on dense bf16 {dms:.4f} ms, "
-                  f"{w.nbytes / ms / 1e6:.0f} GB/s, {calls} calls/token")
+            print(f"  qmm_{kind_name} N={n} K={k} B=1: kernel {ms:.4f} ms (B=4 {ms4:.4f} ms, "
+                  f"{ms4 / ms:.2f}x), plain {pms:.4f} ms, dequant+matmul {lms:.4f} ms, "
+                  f"matmul on dense bf16 {dms:.4f} ms, {w.nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{calls} calls/token")
             t["ms"] += calls * ms
+            t["ms_b4"] += calls * ms4
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
             t["bytes"] += calls * (gguf_nbytes(w) + x.numel() * 2 + n * 4)
@@ -360,8 +406,8 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
     rec["max_nmse"] = max(rec.get("max_nmse", 0.0), worst_nmse)
     if t["ms"]:  # per decode token of the path that uses this kind
         bms, by = bound_ms(t["bytes"], t["flops"])
-        rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
-                   bound_ms=bms, bound_by=by)
+        rec.update(ms=t["ms"], ms_b4=t["ms_b4"], plain_ms=t["plain_ms"],
+                   library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
         if kind_name.startswith(("iq", "tq")):  # the table carrier's bytes beside the GGUF's
             rec["carrier_bound_ms"] = bound_ms(t["carrier_bytes"], t["flops"])[0]
 
@@ -443,6 +489,28 @@ QWEN_DECODE_CALLS_IQ = {(768, 2048): 96, (2048, 768): 48}
 # the Pallas body each kind's kernel replaces (llama_cpp_dsp_tpu/ops/pallas/qmm.py)
 IQ_BODY_LINE = {k: 274 if k.startswith("iq4") else 293 if k in ("iq2_xs", "iq2_s", "iq1_m")
                 else 283 for k in IQ_KINDS}
+
+
+# B1's tensor-core GEMV beyond the main-path batches: every B of 1-8 (B is a
+# runtime argument that masks x's columns) at one main-path shape of each
+# kind, a ragged N (1000 rows: 62 whole tiles and a half one), and the kinds
+# of 32-element blocks at K = 1408 and 10944 (not multiples of 256:
+# DeepSeek-V2-Lite's expert and layer-0 rows) and 352 (an odd count of
+# blocks: the unit DeepSeek's expert rows)
+TC_SHAPE = {"q4_0": (4096, 4096), "q8_0": (2048, 2048), "q4_k": (4096, 4096),
+            "q5_k": (4096, 4096), "q6_k": (1024, 4096), "q4_1": (4096, 4096),
+            "q5_0": (4096, 4096), "q5_1": (4096, 4096), "q3_k": (512, 3584),
+            "q2_k": (4096, 4096), **{k: (4096, 4096) for k in IQ_KINDS}}
+TC_BLOCK32 = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "iq4_nl")
+
+
+def check_qmm_tc(kind_name: str, records) -> None:
+    n, k = TC_SHAPE[kind_name]
+    check_qmm(kind_name, [(n, k)], tuple(range(1, 9)), {}, records, rng_seed=3)
+    check_qmm(kind_name, [(1000, k)], (1, 5), {}, records, rng_seed=4)
+    if kind_name in TC_BLOCK32:
+        check_qmm(kind_name, [(2048, 1408), (2048, 10944), (256, 352)], (1, 3, 8), {}, records,
+                  rng_seed=5)
 
 
 def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
@@ -1763,6 +1831,63 @@ def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "
           f"{ftype}, {vocab} vocab) in {time.perf_counter() - t0:.1f} s")
 
 
+# synthetic GGUF → the phases that read it, in the order the phases run
+FILE_PHASES = {"7b": ("main", "serve"), "l3": ("llama3", "kv8b"), "q5": ("q5km",),
+               "mx": ("mixtral",), "ds": ("deepseek",), "q25": ("qwen",), "q3": ("qwen",),
+               "g3": ("gemma",), "iq4xs": ("iq",), "iq2m": ("iq",)}
+
+
+class BackgroundGGUFs:
+    """The run's full-size synthetic GGUFs (`files`: key → path, config,
+    ftype, vocab, chat template, seed), each written by a child process (a
+    fresh interpreter that never touches the card) while the phases before
+    its own run. One file ahead: the first is started here, the next when a
+    phase asks for one (`ready`), so at most the file in use and the next
+    lie on disk. `close` stops a write still running and deletes them all."""
+
+    def __init__(self, files: dict, order: list):
+        self.files, self.order, self.procs = files, order, {}
+        if order:
+            self._start(order[0])
+
+    def _start(self, key: str) -> None:
+        path, cfg_name, ftype, vocab, template, seed = self.files[key]
+        code = ("import sys; from pathlib import Path; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; a = sys.argv; chip_smoke.write_model(Path(a[2]), a[3], "
+                "a[4], int(a[5]), a[6], a[7] or None)")
+        self.procs[key] = subprocess.Popen(
+            [sys.executable, "-c", code, str(ROOT), str(path), cfg_name, ftype, str(seed),
+             vocab, template or ""], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def ready(self, key: str) -> Path:
+        """The file of `key`, written (waiting for its child if it runs);
+        the next file in order started."""
+        path, cfg_name, ftype, vocab, template, seed = self.files[key]
+        t0 = time.perf_counter()
+        proc = self.procs.pop(key, None)
+        if proc is not None:
+            out, _ = proc.communicate()
+            print("  " + out.strip().replace("\n", "\n  "))
+            if proc.returncode:
+                fail(f"writing {path.name} in the background exited {proc.returncode}")
+            print(f"  ({path.name} written in the background; waited "
+                  f"{time.perf_counter() - t0:.1f} s for it)")
+        elif not path.exists():
+            write_model(path, cfg_name, ftype, seed, vocab, template)
+        nxt = self.order[self.order.index(key) + 1:][:1]
+        if nxt and nxt[0] not in self.procs and not self.files[nxt[0]][0].exists():
+            self._start(nxt[0])
+        return path
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            proc.kill()
+            proc.wait()
+        self.procs.clear()
+        for path, *_ in self.files.values():
+            path.unlink(missing_ok=True)
+
+
 def phase_main(records: dict, path: Path, model) -> None:
     import numpy as np
     import torch
@@ -2514,17 +2639,11 @@ def phase_kv8b(records: dict, path: Path, model) -> None:
                 slot_io=True)
 
 
-def phase_q5km(records: dict) -> None:
+def phase_q5km(records: dict, path: Path) -> None:
     from llama_cpp_dsp_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    path = ROOT / "build" / "smoke" / "llama3-8b-q5_k_m.gguf"
-    try:
-        write_model(path, "llama3-8b", "Q5_K_M", seed=2, vocab="llama-bpe")
-        reset_launches()
-        _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "16", "--temp", "0",
-                          "-c", "256"])
-    finally:
-        path.unlink(missing_ok=True)
+    reset_launches()
+    _, err = run_cli(["-m", str(path), "-p", "hello", "-n", "16", "--temp", "0", "-c", "256"])
     counts = dict(LAUNCHES)
     require(counts, ["qmm_q5_k", "qmm_q6_k", "flash_decode", "flash_prefill"], "q5km")
     records["qmm_q5_k"]["launches"] = counts["qmm_q5_k"]
@@ -3203,8 +3322,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated subset of the kernels phase's checks (default: all): "
-                         "qmm, flash_decode, flash_decode_q4, attn_fused, decode_variants, "
-                         "mla_decode, decode_d256, flash_prefill")
+                         "qmm (B1), qmm_experts (B9), flash_decode, flash_decode_q4, "
+                         "attn_fused, decode_variants, mla_decode, decode_d256, flash_prefill")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -3224,37 +3343,37 @@ def main(argv=None) -> int:
     card = gpu_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    build.lib()
-    print(f"[build] {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "bytes stack" in line or line.startswith("=="):
-            print("  " + line.strip())
     records = {name: {"launches": 0} for name in SOURCES}
     smoke = ROOT / "build" / "smoke"
-    # synthetic GGUFs shared by phases: written and loaded on first use,
-    # deleted after their last phase (and at the end in any case)
+    # synthetic GGUFs shared by phases: written one ahead in the background,
+    # loaded on first use, deleted after their last phase (and at the end in
+    # any case)
     from llama_cpp_dsp_tpu_torch.tools.synth import MIXTRAL_CHAT_TEMPLATE
 
-    files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm", None),
-             "ds": (smoke / "deepseek-v2-lite-q4_k_m.gguf", "deepseek-v2-lite", "Q4_K_M",
-                    "deepseek-llm", None),
-             "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe", None),
+    files = {"7b": (smoke / "llama2-7b-q4_0.gguf", "llama2-7b", "Q4_0", "spm", None, 0),
+             "l3": (smoke / "llama3-8b-q4_k_m.gguf", "llama3-8b", "Q4_K_M", "llama-bpe", None,
+                    0),
+             "q5": (smoke / "llama3-8b-q5_k_m.gguf", "llama3-8b", "Q5_K_M", "llama-bpe", None,
+                    2),
              "mx": (smoke / "mixtral-8x7b-q4_k_m.gguf", "mixtral-8x7b", "Q4_K_M", "spm",
-                    MIXTRAL_CHAT_TEMPLATE),
-             "q25": (smoke / "qwen2.5-7b-q3_k_m.gguf", "qwen2.5-7b", "Q3_K_M", "qwen2", None),
-             "q3": (smoke / "qwen3-8b-q2_k.gguf", "qwen3-8b", "Q2_K", "qwen2", None),
-             "g3": (smoke / "gemma3-12b-q4_k_m.gguf", "gemma3-12b", "Q4_K_M", "gemma", None),
-             "iq4xs": (smoke / "llama3-8b-iq4_xs.gguf", "llama3-8b", "IQ4_XS", "llama-bpe", None),
-             "iq2m": (smoke / "llama3-8b-iq2_m.gguf", "llama3-8b", "IQ2_M", "llama-bpe", None)}
+                    MIXTRAL_CHAT_TEMPLATE, 0),
+             "ds": (smoke / "deepseek-v2-lite-q4_k_m.gguf", "deepseek-v2-lite", "Q4_K_M",
+                    "deepseek-llm", None, 0),
+             "q25": (smoke / "qwen2.5-7b-q3_k_m.gguf", "qwen2.5-7b", "Q3_K_M", "qwen2", None,
+                     0),
+             "q3": (smoke / "qwen3-8b-q2_k.gguf", "qwen3-8b", "Q2_K", "qwen2", None, 0),
+             "g3": (smoke / "gemma3-12b-q4_k_m.gguf", "gemma3-12b", "Q4_K_M", "gemma", None, 0),
+             "iq4xs": (smoke / "llama3-8b-iq4_xs.gguf", "llama3-8b", "IQ4_XS", "llama-bpe", None,
+                       0),
+             "iq2m": (smoke / "llama3-8b-iq2_m.gguf", "llama3-8b", "IQ2_M", "llama-bpe", None,
+                      0)}
     loaded = {}
 
     def model_of(key):
         if key not in loaded:
             from llama_cpp_dsp_tpu_torch.runtime.loader import load_model
 
-            path, cfg_name, ftype, vocab, template = files[key]
-            write_model(path, cfg_name, ftype, seed=0, vocab=vocab, chat_template=template)
+            path = ggufs.ready(key)
             t0 = time.perf_counter()
             loaded[key] = load_model(str(path), "cuda")
             print(f"  loaded {path.name} in {time.perf_counter() - t0:.1f} s")
@@ -3277,7 +3396,6 @@ def main(argv=None) -> int:
                                   DECODE_CALLS_L3_Q6, records),
                         check_qmm("q5_k", QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3,
                                   records),
-                        *(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
                         *(check_qmm(k, LEGACY_QMM_SHAPES, (1, 8, 128),
                                     DECODE_CALLS_7B, records)
                           for k in ("q4_1", "q5_0", "q5_1")),
@@ -3289,29 +3407,32 @@ def main(argv=None) -> int:
                                   (1, 8, 128), DECODE_CALLS_QWEN["q2_k"], records),
                         *(check_qmm(k, shapes, (1, 8, 128), {}, records)
                           for k, shapes in QWEN_KQ_SHAPES.items()),
-                        *(check_qmm_experts(k, records, n_expert=128,
-                                            shapes=QWEN_EXPERT_SHAPES,
-                                            rows=QWEN_EXPERT_ROWS,
-                                            decode_calls=QWEN_DECODE_CALLS[k], s_time=8)
-                          for k in QWEN_DECODE_CALLS),
-                        *(check_qmm_experts(k, records, n_expert=64,
-                                            shapes=DS_EXPERT_SHAPES,
-                                            rows=DS_EXPERT_ROWS,
-                                            decode_calls=DS_DECODE_CALLS[k], s_time=6)
-                          for k in DS_DECODE_CALLS),
-                        *(check_qmm_experts(k, records, n_expert=64, shapes=shapes,
-                                            rows=DS_EXPERT_ROWS, decode_calls={})
-                          for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
                         *(check_qmm(k, shapes, KQ_BATCHES, {}, records)
                           for k, shapes in DS_QMM_SHAPES.items()),
                         *(check_qmm(k, QMM_SHAPES_L3, KQ_BATCHES, DECODE_CALLS_L3_IQ,
                                     records) for k in IQ_KINDS),
-                        *(check_qmm_experts(k, records, n_expert=128,
-                                            shapes=QWEN_EXPERT_SHAPES,
-                                            rows=QWEN_EXPERT_ROWS,
-                                            decode_calls=QWEN_DECODE_CALLS_IQ,
-                                            s_time=8)
-                          for k in IQ_KINDS)),
+                        *(check_qmm_tc(k, records) for k in TC_SHAPE)),
+        "qmm_experts": lambda: (*(check_qmm_experts(k, records) for k in MOE_DECODE_CALLS),
+                                *(check_qmm_experts(k, records, n_expert=128,
+                                                    shapes=QWEN_EXPERT_SHAPES,
+                                                    rows=QWEN_EXPERT_ROWS,
+                                                    decode_calls=QWEN_DECODE_CALLS[k],
+                                                    s_time=8)
+                                  for k in QWEN_DECODE_CALLS),
+                                *(check_qmm_experts(k, records, n_expert=64,
+                                                    shapes=DS_EXPERT_SHAPES,
+                                                    rows=DS_EXPERT_ROWS,
+                                                    decode_calls=DS_DECODE_CALLS[k], s_time=6)
+                                  for k in DS_DECODE_CALLS),
+                                *(check_qmm_experts(k, records, n_expert=64, shapes=shapes,
+                                                    rows=DS_EXPERT_ROWS, decode_calls={})
+                                  for k, shapes in DS_EXPERT_KQ_SHAPES.items()),
+                                *(check_qmm_experts(k, records, n_expert=128,
+                                                    shapes=QWEN_EXPERT_SHAPES,
+                                                    rows=QWEN_EXPERT_ROWS,
+                                                    decode_calls=QWEN_DECODE_CALLS_IQ,
+                                                    s_time=8)
+                                  for k in IQ_KINDS)),
         "flash_decode": lambda: check_flash_decode(records),
         "flash_decode_q4": lambda: check_flash_decode_q4(records),
         "attn_fused": lambda: check_attn_fused(records),
@@ -3334,7 +3455,7 @@ def main(argv=None) -> int:
                                  "kv8b" in phases or done_with("l3"))),
              ("kv8b", lambda: (phase_kv8b(records, files["l3"][0], model_of("l3")),
                                done_with("l3"))),
-             ("q5km", lambda: phase_q5km(records)),
+             ("q5km", lambda: (phase_q5km(records, ggufs.ready("q5")), done_with("q5"))),
              ("small_moe", lambda: phase_small_moe(records)),
              ("mixtral", lambda: (phase_mixtral(records, files["mx"][0], model_of("mx")),
                                   done_with("mx"))),
@@ -3347,7 +3468,15 @@ def main(argv=None) -> int:
              ("gemma", lambda: phase_gemma(records, files, model_of, done_with)),
              ("small_iq", lambda: phase_small_iq(records)),
              ("iq", lambda: phase_iq(records, files, model_of, done_with))]
+    ggufs = BackgroundGGUFs(files, [key for key, uses in FILE_PHASES.items()
+                                    if set(uses) & set(phases)])
     try:
+        t0 = time.perf_counter()
+        build.lib()
+        print(f"[build] {time.perf_counter() - t0:.1f} s")
+        for line in build.build_log.splitlines():
+            if "registers" in line or "bytes stack" in line or line.startswith("=="):
+                print("  " + line.strip())
         for name, fn in steps:
             if name in phases:
                 t0 = time.perf_counter()
@@ -3355,8 +3484,7 @@ def main(argv=None) -> int:
                 fn()
                 print(f"[{name}] done in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
-        for path, *_ in files.values():
-            path.unlink(missing_ok=True)
+        ggufs.close()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (src, replaces, tol) in SOURCES.items():
@@ -3367,7 +3495,8 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("by_row_type", "gqa", "d256", "carrier_bound_ms",
+                        **{k: r[k] for k in ("ms_b4", "by_row_type", "gqa", "d256",
+                                             "carrier_bound_ms",
                                              "bound_split_ms", "bound_f32_ms", "d128",
                                              "f32_rows") if k in r}})
     print(card)

@@ -6,17 +6,21 @@ one C entry per group size and scale type, the table passed as four words;
 launches are counted per kind).
 
 Counterpart of the JAX package's ops/pallas/qmm.py (`qmm_fused`,
-`qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a GEMV for B ≤ 8
-(decode), a tiled tensor-core kernel for larger B (prefill), and the MoE
-selected-expert GEMV (`qmm_expert_rows`: row s against expert sel[s] of a
-stacked QTensor, reading only the selected experts' bytes).
+`qmm_expert_rows`). The CUDA kernels are in csrc/qmm.cu: a tensor-core GEMV
+for B ≤ 8 (decode: the integer codes as exact bf16 operands of mma.sync,
+x's rows as its columns), a tiled tensor-core kernel for larger B
+(prefill), and the MoE selected-expert GEMV (`qmm_expert_rows`: row s
+against expert sel[s] of a stacked QTensor, reading only the selected
+experts' bytes).
 
 Tolerance: the kernels and `qmm_plain` agree with x · exact-f32-dequant(W)ᵀ
 to NMSE ≤ 5e-4 (the reference's MUL_MAT tolerance, as in
 tests/test_pallas_qmm.py). The plain version rounds the dequantized weight
 to bf16 before an f32 product, as the JAX package's XLA path does; the GEMV
 keeps the exact integer values and applies each group's scale (and, for
-Q2_K/Q4_K/Q5_K, its min term) to the group's dot, as ggml's vec_dot does.
+the kinds with mins, its min term) to the group's dot, as ggml's vec_dot
+does: it differs from exact f32 only in the order of its sums
+(tests/test_torch_qmm_tc.py emulates its arithmetic).
 """
 
 from __future__ import annotations
