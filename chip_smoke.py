@@ -11,7 +11,10 @@ Phases:
   kernels  each hand-written kernel against its plain PyTorch version on the
            card, at the llama2-7B shapes (flash decode over bf16, f16 and f32
            rows, B2 also at capacities 770 and 4096 and both cluster sizes,
-           timed beside sdpa at the 8B, Qwen2.5-7B and 8B-CLI shapes; Q4_0
+           timed beside sdpa at the 8B, Qwen2.5-7B and 8B-CLI shapes; paged
+           Q8_0 decode B7 also over pages of 16, 50 and 128 rows, 512 pages,
+           spans of 1 to 8192 rows and cluster sizes 0 / 8 / 16, timed at
+           the same shapes; Q4_0
            decode at the 7B's and the 8B's heads and capacities 512, 4096
            and 770; qmm Q4_K/Q5_K/Q6_K: the Llama-3-8B
            Q4_K_M / Q5_K_M shapes; the Q4_1/Q5_0/Q5_1 kernels and MLA decode:
@@ -29,8 +32,9 @@ Phases:
            its stated tolerance and, where it has one, a planted fault
            that the tolerance must catch (B1 at B <= 8 also x rotated
            inside each 16-element run and rows g / g+8 of a tile
-           swapped); times of kernel, plain version and a PyTorch
-           yardstick call.
+           swapped; B7 its pages swapped and its row scales shifted, at
+           100x the limit); times of kernel, plain version and a PyTorch
+           yardstick call, each with the profiler window it came from.
   small    a 2-layer head_dim-128 Q4_0 model: logits and greedy stream on
            the card (kernels) against the same model on the CPU (plain).
   main     a full-width llama2-7B-geometry Q4_0 GGUF of random blocks through
@@ -42,8 +46,9 @@ Phases:
            Q8_0 KV rows): four concurrent chat and completion requests each,
            two sharing a system prompt; then, on each engine, an idle slot's
            rows across a batched decode step and the first decode-step
-           logits against a B=1 forward over a contiguous cache of the
-           engine's row type.
+           logits against the prompt's own forward over a cache of the
+           engine's row type and layout at the engine's batch width (over Q8_0
+           pages each layer's B7 output is also held to its plain version).
   q8       a TinyLlama-1.1B-geometry Q8_0 GGUF through the CLI.
   small_kq a 2-layer head_dim-128 Q4_K_M model with a llama-bpe vocab: logits
            and greedy stream on the card against the CPU.
@@ -61,7 +66,6 @@ Phases:
            type, then the server over Q4_0 slots and Q4_0 pages (the burst,
            an idle slot, first-step logits, a slot save and restore through
            /slots whose restored slot must continue as the saved one).
-  q5km     the same model as Q5_K_M through the CLI.
   small_moe a 2-layer Mixtral-shaped model (8 experts, top-2) at narrow
            widths in four mixes (Q4_K_M, Q5_K_M, Q4_0, Q8_0): a 34-token
            prefill (dense-all experts) and decode (the selected-expert
@@ -106,6 +110,8 @@ Phases:
            launches of one decode step, bytes a token reads, a profiled
            chunk and 512-token prefill; the server over slots bf16 and
            paged q8_0) and IQ2_M (the CLI).
+  q5km     the Llama-3-8B model as Q5_K_M through the CLI (last: its file is
+           written while iq runs).
 
 Every kernel's launch count is set to 0 just before the path that uses it
 and read just after; the script fails if a kernel of the path never ran.
@@ -134,8 +140,8 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "small", "main", "serve", "q8", "small_kq", "small_kv", "llama3",
-          "kv8b", "q5km", "small_moe", "mixtral", "small_ds", "deepseek", "small_qwen", "qwen",
-          "small_gemma", "gemma", "small_iq", "iq")
+          "kv8b", "small_moe", "mixtral", "small_ds", "deepseek", "small_qwen", "qwen",
+          "small_gemma", "gemma", "small_iq", "iq", "q5km")
 
 
 def fail(msg: str) -> None:
@@ -148,17 +154,18 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def time_ms(fn, arg_sets, iters: int = 30) -> float:
-    """Device time of fn(*args) per call: the durations of the CUDA kernels
-    it runs (torch.profiler), cycling over arg_sets (enough copies to exceed
-    L2 where the caller streams weights once). A window counts when every
-    kernel in it was recorded at least `iters` times; each kernel then adds
-    its mean duration × its launches per call. A window that lost events is
-    taken again, five times at most; then the last one's summed durations
-    over `iters` (every event it recorded; a lost one reads low). CUDA events
-    around the loop would time the host instead: at decode sizes the host
-    issues a call more slowly than the card runs it; they are the fallback,
-    an upper bound, when the profiler returns no CUDA events five times."""
+def time_ms(fn, arg_sets, iters: int = 30) -> tuple[float, str]:
+    """Device time of fn(*args) per call, and the window it came from:
+    the durations of the CUDA kernels it runs (torch.profiler), cycling over
+    arg_sets (enough copies to exceed L2 where the caller streams weights
+    once). A window counts when every kernel in it was recorded at least
+    `iters` times ("full"); each kernel then adds its mean duration × its
+    launches per call. A window that lost events is taken again, five times
+    at most; then the last one's summed durations over `iters` ("sum":
+    every event it recorded; a lost one reads low). CUDA events around the
+    loop would time the host instead: at decode sizes the host issues a call
+    more slowly than the card runs it; they are the fallback ("events"), an
+    upper bound, when the profiler returns no CUDA events five times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,13 +182,13 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
         if evs and all(e.count >= iters for e in evs):
             return sum(e.self_device_time_total / e.count * round(e.count / iters)
-                       for e in evs) / 1e3
+                       for e in evs) / 1e3, "full"
         partial_us = sum(e.self_device_time_total for e in evs) or partial_us
     if partial_us > 0:
         ms = partial_us / 1e3 / iters
         print(f"  (torch.profiler lost launches in five windows: the last one's sum, {ms:.4f} "
               "ms, may read low)")
-        return ms
+        return ms, "sum"
     # CUDA events around the loop: an upper bound (host issue time included)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -192,7 +199,25 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     ms = start.elapsed_time(end) / iters
     print(f"  (torch.profiler recorded no device time five times: CUDA events, {ms:.4f} ms, "
           "an upper bound)")
-    return ms
+    return ms, "events"
+
+
+@contextlib.contextmanager
+def seconds_into(acc: dict, key: str):
+    """Add the block's wall seconds to acc[key]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+
+def add_window(wins: dict, field: str, window: str) -> None:
+    """Note that figure `field` took a time_ms result from `window`; a figure
+    summed over several results names each of their windows once
+    ("full+sum")."""
+    seen = set(wins[field].split("+")) if field in wins else set()
+    wins[field] = "+".join(sorted(seen | {window}))
 
 
 def n_copies(nbytes: int) -> int:
@@ -228,11 +253,13 @@ def slot_nmse(got, want) -> list[float]:
     return [nmse(g, w) for g, w in zip(got, want)]
 
 
-def check_slots(name: str, got, want, faults: dict, tol: float) -> float:
+def check_slots(name: str, got, want, faults: dict, tol: float, margin: float = 1.0) -> float:
     """Fail unless every slot of got is within `tol` (NMSE) of want, and
-    every planted fault (the plain version with a row dropped) is outside
-    it on every slot: the limit would catch that bug. Returns the worst
-    kernel NMSE."""
+    every planted fault (the plain version with a row dropped) is above
+    margin × tol on every slot: the limit would catch that bug. A fault given
+    as (output, slots) counts on those slots only (the ones where it changes
+    what is read; none: it is not checked here, and the line says so).
+    Returns the worst kernel NMSE."""
     import torch
 
     errs = slot_nmse(got, want)
@@ -241,10 +268,15 @@ def check_slots(name: str, got, want, faults: dict, tol: float) -> float:
     if not (max(errs) <= tol and torch.isfinite(got).all()):
         fail(f"{name} disagrees with its plain version")
     for label, bad in faults.items():
+        bad, slots = bad if isinstance(bad, tuple) else (bad, range(len(bad)))
+        if not slots:
+            print(f"    planted fault '{label}': changes no slot's rows here")
+            continue
         fe = slot_nmse(bad, want)
-        print(f"    planted fault '{label}': per-slot nmse {' '.join(f'{e:.1e}' for e in fe)}")
-        if not min(fe) > tol:
-            fail(f"{name}: the tolerance would not catch '{label}'")
+        print(f"    planted fault '{label}': per-slot nmse {' '.join(f'{e:.1e}' for e in fe)}"
+              + (f" (slots {list(slots)})" if len(slots) < len(fe) else ""))
+        if not min(fe[i] for i in slots) > margin * tol:
+            fail(f"{name}: the tolerance would not catch '{label}' ({margin:g}x)")
     return max(errs)
 
 
@@ -346,6 +378,7 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
     worst = worst_nmse = 0.0
     t = {"ms": 0.0, "ms_b4": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
          "carrier_bytes": 0.0, "flops": 0.0}
+    wins = {}  # figure → time_ms windows (add_window)
     for n, k in shapes:
         w = synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
         w_exact = dequant(w, torch.float32)
@@ -381,18 +414,21 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
             ws = [w] + [synth_qtensor(rng, kind, (n, k), device="cuda").to("cuda")
                         for _ in range(n_copies(w.nbytes) - 1)]
             dense = [dequant(wi, torch.bfloat16) for wi in ws[:n_copies(n * k * 2)]]
-            ms = time_ms(qmm, [(x, wi) for wi in ws])
-            ms4 = time_ms(qmm, [(x4, wi) for wi in ws], iters=10)
-            pms = time_ms(qmm_plain, [(x, wi) for wi in ws], iters=5)
+            ms, w_ms = time_ms(qmm, [(x, wi) for wi in ws])
+            ms4, w_ms4 = time_ms(qmm, [(x4, wi) for wi in ws], iters=10)
+            pms, w_pms = time_ms(qmm_plain, [(x, wi) for wi in ws], iters=5)
             # yardstick: PyTorch alone on the same packed inputs (dequant, then
             # a bf16 matmul); the dense bf16 matmul alone is printed beside it
-            lms = time_ms(lambda a, wi: torch.matmul(a, dequant(wi, torch.bfloat16).T),
-                          [(x, wi) for wi in ws], iters=10)
-            dms = time_ms(lambda a, m: torch.matmul(a, m.T), [(x, d) for d in dense])
-            print(f"  qmm_{kind_name} N={n} K={k} B=1: kernel {ms:.4f} ms (B=4 {ms4:.4f} ms, "
-                  f"{ms4 / ms:.2f}x), plain {pms:.4f} ms, dequant+matmul {lms:.4f} ms, "
-                  f"matmul on dense bf16 {dms:.4f} ms, {w.nbytes / ms / 1e6:.0f} GB/s, "
-                  f"{calls} calls/token")
+            lms, w_lms = time_ms(lambda a, wi: torch.matmul(a, dequant(wi, torch.bfloat16).T),
+                                 [(x, wi) for wi in ws], iters=10)
+            dms, w_dms = time_ms(lambda a, m: torch.matmul(a, m.T), [(x, d) for d in dense])
+            print(f"  qmm_{kind_name} N={n} K={k} B=1: kernel {ms:.4f} ms [{w_ms}] (B=4 "
+                  f"{ms4:.4f} ms [{w_ms4}], {ms4 / ms:.2f}x), plain {pms:.4f} ms [{w_pms}], "
+                  f"dequant+matmul {lms:.4f} ms [{w_lms}], matmul on dense bf16 {dms:.4f} ms "
+                  f"[{w_dms}], {w.nbytes / ms / 1e6:.0f} GB/s, {calls} calls/token")
+            for field, w_ in (("ms", w_ms), ("ms_b4", w_ms4), ("plain_ms", w_pms),
+                              ("library_ms", w_lms)):
+                add_window(wins, field, w_)
             t["ms"] += calls * ms
             t["ms_b4"] += calls * ms4
             t["plain_ms"] += calls * pms
@@ -407,7 +443,7 @@ def check_qmm(kind_name: str, shapes, batches, decode_calls, records, rng_seed=0
     if t["ms"]:  # per decode token of the path that uses this kind
         bms, by = bound_ms(t["bytes"], t["flops"])
         rec.update(ms=t["ms"], ms_b4=t["ms_b4"], plain_ms=t["plain_ms"],
-                   library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+                   library_ms=t["library_ms"], bound_ms=bms, bound_by=by, windows=wins)
         if kind_name.startswith(("iq", "tq")):  # the table carrier's bytes beside the GGUF's
             rec["carrier_bound_ms"] = bound_ms(t["carrier_bytes"], t["flops"])[0]
 
@@ -536,6 +572,7 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
     worst = worst_nmse = 0.0
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "carrier_bytes": 0.0,
          "flops": 0.0}
+    wins = {}  # figure → time_ms windows (add_window)
 
     def library(x, w, sel):  # PyTorch alone: dequant the selected experts, bmm
         s, (n, k) = x.shape[0], w.shape
@@ -577,12 +614,15 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
             sets = [(x, w, torch.tensor([(st * i + j) % n_expert for j in range(st)],
                                         dtype=torch.int32, device="cuda"))
                     for i in range(max(1, n_expert // st))]
-            ms = time_ms(qmm_expert_rows, sets)
-            pms = time_ms(qmm_expert_rows_plain, sets, iters=5)
-            lms = time_ms(library, sets, iters=10)
-            print(f"  {name} N={n} K={k} S={st}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"dequant+bmm {lms:.4f} ms, {st * per_expert / ms / 1e6:.0f} GB/s of selected "
-                  f"experts, {calls} calls/token")
+            ms, w_ms = time_ms(qmm_expert_rows, sets)
+            pms, w_pms = time_ms(qmm_expert_rows_plain, sets, iters=5)
+            lms, w_lms = time_ms(library, sets, iters=10)
+            print(f"  {name} N={n} K={k} S={st}: kernel {ms:.4f} ms [{w_ms}], plain {pms:.4f} ms "
+                  f"[{w_pms}], dequant+bmm {lms:.4f} ms [{w_lms}], "
+                  f"{st * per_expert / ms / 1e6:.0f} GB/s of selected experts, "
+                  f"{calls} calls/token")
+            for field, w_ in (("ms", w_ms), ("plain_ms", w_pms), ("library_ms", w_lms)):
+                add_window(wins, field, w_)
             t["ms"] += calls * ms
             t["plain_ms"] += calls * pms
             t["library_ms"] += calls * lms
@@ -598,7 +638,7 @@ def check_qmm_experts(kind_name: str, records, n_expert: int = 8, rng_seed=0,
     if t["ms"]:  # per decode token of the path that uses this kind
         bms, by = bound_ms(t["bytes"], t["flops"])
         rec.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by, windows=wins)
         if kind_name.startswith(("iq", "tq")):
             rec["carrier_bound_ms"] = bound_ms(t["carrier_bytes"], t["flops"])[0]
 
@@ -661,9 +701,7 @@ def check_flash_decode(records):
     import torch
     import torch.nn.functional as F
 
-    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import (flash_decode,
-                                                                flash_decode_cluster,
-                                                                flash_decode_plain)
+    from llama_cpp_dsp_tpu_torch.ops.kernels.attention import flash_decode, flash_decode_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, d, s = 4, 32, 128, 512
@@ -728,8 +766,8 @@ def check_flash_decode(records):
                     faults = b2_faults(flash_decode_plain, q, kt, vt, ln, starts,
                                        scale=d ** -0.5, softcap=cap)
                     for cl in (0, 8, 16):
-                        got = flash_decode_cluster(q, kt, vt, ln, starts, scale=d ** -0.5,
-                                                   softcap=cap, cluster=cl)
+                        got = flash_decode(q, kt, vt, ln, starts, scale=d ** -0.5,
+                                           softcap=cap, cluster=cl)
                         torch.cuda.synchronize()
                         worst = max(worst, float((got - want).abs().max()))
                         worst_nmse = max(worst_nmse, check_slots(
@@ -755,16 +793,18 @@ def check_flash_decode(records):
             k = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(dt)
             v = torch.randn(1, hkv, L, d, generator=gen, device="cuda").to(dt)
             sets.append((q, k, v))
-        ms = time_ms(lambda q, k, v: flash_decode(q, k, v, one, scale=d ** -0.5), sets)
-        pms = time_ms(lambda q, k, v: flash_decode_plain(q, k, v, one, scale=d ** -0.5), sets)
-        lms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        ms, w_ms = time_ms(lambda q, k, v: flash_decode(q, k, v, one, scale=d ** -0.5), sets)
+        pms, w_pms = time_ms(lambda q, k, v: flash_decode_plain(q, k, v, one, scale=d ** -0.5),
+                             sets)
+        lms, w_lms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.to(dt)[:, :, None], k, v, scale=d ** -0.5), sets)
         bms, by = bound_ms(kv_bytes + 2 * h * d * 4, 4.0 * h * L * d, F32_FLOPS)
-        print(f"  flash_decode {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.4f} ms, "
+        print(f"  flash_decode {name} 7B layer, context {L}: kernel {ms:.4f} ms [{w_ms}], plain "
+              f"{pms:.4f} ms [{w_pms}], sdpa {lms:.4f} ms [{w_lms}], bound {bms:.4f} ms, "
               f"{kv_bytes / ms / 1e6:.0f} GB/s")
         by_type[name] = {"ms": 32 * ms, "plain_ms": 32 * pms, "library_ms": 32 * lms,
-                         "bound_ms": 32 * bms}
+                         "bound_ms": 32 * bms,
+                         "windows": {"ms": w_ms, "plain_ms": w_pms, "library_ms": w_lms}}
     # time: the GQA layers (B2_GQA_ROWS), bf16, B=1, cold caches; the kernel
     # at its own cluster size and at 8 and 16, sdpa with enable_gqa; 100
     # calls a figure (a few µs each)
@@ -779,23 +819,25 @@ def check_flash_decode(records):
         # a first figure of a sequence reads high (the card's clocks): one
         # warm-up figure, dropped
         time_ms(lambda q, k, v: flash_decode(q, k, v, n, scale=d ** -0.5), sets, iters=100)
-        row = {"ms": time_ms(lambda q, k, v: flash_decode(q, k, v, n, scale=d ** -0.5), sets,
-                             iters=100)}
+        timed = {"ms": time_ms(lambda q, k, v: flash_decode(q, k, v, n, scale=d ** -0.5), sets,
+                               iters=100)}
         for cl in (8, 16):
-            row[f"cluster{cl}_ms"] = time_ms(lambda q, k, v: flash_decode_cluster(
+            timed[f"cluster{cl}_ms"] = time_ms(lambda q, k, v: flash_decode(
                 q, k, v, n, scale=d ** -0.5, cluster=cl), sets, iters=100)
-        row["plain_ms"] = time_ms(
+        timed["plain_ms"] = time_ms(
             lambda q, k, v: flash_decode_plain(q, k, v, n, scale=d ** -0.5), sets)
-        row["library_ms"] = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        timed["library_ms"] = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.to(torch.bfloat16)[:, :, None], k[:, :, :rows], v[:, :, :rows], scale=d ** -0.5,
             enable_gqa=True), sets, iters=100)
+        row = {k_: v_[0] for k_, v_ in timed.items()}
         row["bound_ms"], row["bound_by"] = bound_ms(2 * hkv * rows * d * 2 + 2 * hq * d * 4 + 4,
                                                     4.0 * hq * rows * d, F32_FLOPS)
         print(f"  flash_decode bf16 {label} layer (H {hq} / Hkv {hkv}, {rows} of {L} rows): "
-              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in row.items() if k_ != "bound_by")
-              + f" ms; per token ({layers} layers): kernel {layers * row['ms']:.4f}, sdpa "
-              f"{layers * row['library_ms']:.4f}")
+              + ", ".join(f"{k_} {v_[0]:.4f} [{v_[1]}]" for k_, v_ in timed.items())
+              + f", bound_ms {row['bound_ms']:.4f} ms; per token ({layers} layers): kernel "
+              f"{layers * row['ms']:.4f}, sdpa {layers * row['library_ms']:.4f}")
         gqa[label] = {k_: (layers * v_ if k_.endswith("ms") else v_) for k_, v_ in row.items()}
+        gqa[label]["windows"] = {k_: v_[1] for k_, v_ in timed.items()}
     records["flash_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, **by_type["bf16"],
                                    bound_by=by, by_row_type=by_type, gqa=gqa)
 
@@ -874,17 +916,20 @@ def check_flash_decode_q4(records):
         q = torch.randn(1, h, d, generator=gen, device="cuda")
         sets.append((q, *_q4_planes(torch.randn(1, hkv, L, d, generator=gen, device="cuda")),
                      *_q4_planes(torch.randn(1, hkv, L, d, generator=gen, device="cuda"))))
-    ms = time_ms(lambda *a: ka.flash_decode_q4(*a, one, scale=sc), sets)
-    pms = time_ms(lambda *a: ka.flash_decode_q4_plain(*a, one, scale=sc), sets)
-    lms = time_ms(lambda q, kq, kd, vq, vd: F.scaled_dot_product_attention(
+    ms, w_ms = time_ms(lambda *a: ka.flash_decode_q4(*a, one, scale=sc), sets)
+    pms, w_pms = time_ms(lambda *a: ka.flash_decode_q4_plain(*a, one, scale=sc), sets)
+    lms, w_lms = time_ms(lambda q, kq, kd, vq, vd: F.scaled_dot_product_attention(
         q.to(torch.bfloat16)[:, :, None], q4_deq_plane(kq, kd), q4_deq_plane(vq, vd),
         scale=sc), sets)
     bms, by = bound_ms(kv_bytes + 2 * h * d * 4 + 4, 4.0 * h * L * d)
-    print(f"  flash_decode_q4 7B layer, context {L}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"dequant + sdpa {lms:.4f} ms, bound {bms:.4f} ms, {kv_bytes / ms / 1e6:.0f} GB/s")
+    print(f"  flash_decode_q4 7B layer, context {L}: kernel {ms:.4f} ms [{w_ms}], plain "
+          f"{pms:.4f} ms [{w_pms}], dequant + sdpa {lms:.4f} ms [{w_lms}], bound {bms:.4f} ms, "
+          f"{kv_bytes / ms / 1e6:.0f} GB/s")
     records["flash_decode_q4"].update(max_abs_err=worst[0], max_nmse=worst[1], ms=32 * ms,
                                       plain_ms=32 * pms, library_ms=32 * lms,
-                                      bound_ms=32 * bms, bound_by=by)
+                                      bound_ms=32 * bms, bound_by=by,
+                                      windows={"ms": w_ms, "plain_ms": w_pms,
+                                               "library_ms": w_lms})
 
 
 VARIANT_LENGTHS = (1, 37, 200, 511)  # ragged, one row to a full 512-row slot
@@ -914,6 +959,41 @@ def _paged_tables(lengths, ps: int, s: int, gen):
     return tables.to("cuda"), n_pages
 
 
+# B7's further paged caches (capacity, page size, lengths, SWA starts): spans
+# of 1, 5 and 65 rows and a full capacity in one batch, SWA starts inside a
+# page; pages of 50 rows, whose scale rows are not 16-byte aligned (200
+# bytes a page); 512 pages of 16 rows, past the kernel's 256-entry table
+# window. Every table entry past a length is P (≥ P: clamped, never read).
+B7_CACHES = ((512, 128, (1, 5, 65, 512), (0, 3, 13, 77)),
+             (500, 50, (1, 5, 65, 500), (0, 3, 13, 77)),
+             (8192, 16, (1, 5, 4100, 8192), (0, 3, 30, 5000)))
+B7_FAULT_MARGIN = 100.0  # B7's planted faults read at least 100x FLASH_NMSE_TOL
+
+
+def b7_faults(plain, q, kq, kd, vq, vd, tables, lengths, starts, **kw) -> dict:
+    """The planted faults B7's checks must catch, through its plain
+    version: the first or the last valid row dropped; the table entries of
+    the first and the last valid page swapped (counted on the slots where
+    that changes the rows read: two pages or more, one of them partly
+    valid; attention does not depend on the order of its rows); each row
+    given its neighbour's K and V scales (the next row of its page)."""
+    import torch
+
+    ps = kq.shape[2]
+    st = torch.zeros_like(lengths) if starts is None else starts
+    swapped, slots = tables.clone(), []
+    for b, (lo, hi) in enumerate(zip(st.tolist(), lengths.tolist())):
+        first, last = lo // ps, (hi - 1) // ps
+        if hi > lo and last > first and (lo % ps or hi % ps):
+            swapped[b, first], swapped[b, last] = tables[b, last], tables[b, first]
+            slots.append(b)
+    return {"first row dropped": plain(q, kq, kd, vq, vd, tables, lengths, st + 1, **kw),
+            "last row dropped": plain(q, kq, kd, vq, vd, tables, lengths - 1, starts, **kw),
+            "pages swapped": (plain(q, kq, kd, vq, vd, swapped, lengths, starts, **kw), slots),
+            "scales shifted": plain(q, kq, kd.roll(-1, -1), vq, vd.roll(-1, -1), tables,
+                                    lengths, starts, **kw)}
+
+
 def _dense_q8(k):
     """A random f32 cache [.., S, D] → int8 rows and [.., 1, S] scales, by
     the port's own quantizer."""
@@ -927,7 +1007,11 @@ def check_decode_variants(records):
     """flash_decode_q8, flash_decode_paged and flash_decode_paged_q8 against
     their plain versions at D=128 over HEAD_CASES (H 32 over Hkv 32 and 8,
     H 28 over Hkv 4), B=4 ragged slots of a 512-row context; per-slot NMSE
-    with the planted faults."""
+    with the planted faults. B7 also over B7_CACHES, at cluster sizes 0
+    (its own choice), 8 and 16, with its faults (b7_faults) at
+    B7_FAULT_MARGIN x the limit; its launch is the cluster kernel alone.
+    Timed at the 7B layer (B7 at both cluster sizes too) and B7 at the
+    Llama-3-8B, Qwen2.5-7B and 8B-CLI layers of B2_GQA_ROWS."""
     import torch
     import torch.nn.functional as F
 
@@ -941,23 +1025,36 @@ def check_decode_variants(records):
     swa = torch.tensor(VARIANT_STARTS, dtype=torch.int32, device="cuda")
     worst = {n: [0.0, 0.0] for n in ("flash_decode_q8", "flash_decode_paged",
                                      "flash_decode_paged_q8")}
+    b7_s = {}  # seconds of B7's checks and of its timing rows
 
-    def run_case(name, label, kernel, plain, args):
+    def run_case(name, label, kernel, plain, args, lengths=lengths, swa=swa):
+        with seconds_into(b7_s if name == "flash_decode_paged_q8" else {}, "checks"):
+            run_cases(name, label, kernel, plain, args, lengths, swa)
+
+    def run_cases(name, label, kernel, plain, args, lengths, swa):
         for case, starts, cap in (("full", None, 0.0), ("swa", swa, 0.0),
                                   ("softcap", None, 30.0)):
-            got = kernel(*args, lengths, starts, scale=sc, softcap=cap)
             want = plain(*args, lengths, starts, scale=sc, softcap=cap)
             st = torch.zeros_like(lengths) if starts is None else starts
-            faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc, softcap=cap),
-                      "last row dropped": plain(*args, lengths - 1, starts, scale=sc,
-                                                softcap=cap)}
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            w = worst[name]
-            w[0] = max(w[0], err)
-            print(f"  {name} {label} {case}: max|kernel-plain| {err:.3e}")
-            w[1] = max(w[1], check_slots(f"{name} {label} {case}", got, want, faults,
-                                         FLASH_NMSE_TOL))
+            if name == "flash_decode_paged_q8":
+                faults = b7_faults(plain, *args, lengths, starts, scale=sc, softcap=cap)
+                clusters, margin = ka.CLUSTERS, B7_FAULT_MARGIN
+            else:
+                faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc,
+                                                     softcap=cap),
+                          "last row dropped": plain(*args, lengths - 1, starts, scale=sc,
+                                                    softcap=cap)}
+                clusters, margin = (None,), 1.0
+            for cl in clusters:
+                kw = {} if cl is None else {"cluster": cl}
+                got = kernel(*args, lengths, starts, scale=sc, softcap=cap, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                w = worst[name]
+                w[0] = max(w[0], err)
+                tag = f"{name} {label} {case}" + ("" if cl is None else f" cluster {cl or 'auto'}")
+                print(f"  {tag}: max|kernel-plain| {err:.3e}")
+                w[1] = max(w[1], check_slots(tag, got, want, faults, FLASH_NMSE_TOL, margin))
 
     for hq, hkv in HEAD_CASES:
         q = torch.randn(b, hq, d, generator=gen, device="cuda")
@@ -979,6 +1076,26 @@ def check_decode_variants(records):
             vpq, vpd = _dense_q8(vp)
             run_case("flash_decode_paged_q8", label, ka.flash_decode_paged_q8,
                      ka.flash_decode_paged_q8_plain, (q, kpq, kpd, vpq, vpd, tables))
+        for cap_rows, ps, lens, sts in B7_CACHES:
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            tables, n_pages = _paged_tables(lens, ps, cap_rows, cpu_gen)
+            kpq, kpd = _dense_q8(torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda"))
+            vpq, vpd = _dense_q8(torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda"))
+            run_case("flash_decode_paged_q8", f"Hkv={hkv} S={cap_rows} ps={ps}",
+                     ka.flash_decode_paged_q8, ka.flash_decode_paged_q8_plain,
+                     (q, kpq, kpd, vpq, vpd, tables), ln,
+                     torch.tensor(sts, dtype=torch.int32, device="cuda"))
+            del kpq, kpd, vpq, vpd
+    # B7's entry is one launch of the cluster kernel: no split kernel, no merge
+    tb = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    kpq, kpd = _dense_q8(torch.randn(4, 8, 128, d, generator=gen, device="cuda"))
+    q = torch.randn(1, 32, d, generator=gen, device="cuda")
+    one = torch.tensor([512], dtype=torch.int32, device="cuda")
+    names = kernel_names(lambda: ka.flash_decode_paged_q8(q, kpq, kpd, kpq, kpd, tb, one,
+                                                          scale=sc))
+    print(f"  flash_decode_paged_q8 runs: {sorted(names)}")
+    if not (len(names) == 1 and "flash_decode_gqa" in next(iter(names))):
+        fail(f"flash_decode_paged_q8 ran {sorted(names)}, not the cluster kernel alone")
 
     # time: one 7B layer (B=1, Hkv=32) at a full 512-row context, cold
     # caches, pages of 128 rows (the server's default) in shuffled order
@@ -1026,17 +1143,31 @@ def check_decode_variants(records):
             "gather + dequant + sdpa"),
     }
     for name, (kernel, plain, arg_sets, nbytes, library, lib_label) in timed.items():
-        ms = time_ms(lambda *a: kernel(*a, one, scale=sc), arg_sets)
-        pms = time_ms(lambda *a: plain(*a, one, scale=sc), arg_sets)
-        lms = time_ms(library, arg_sets)
+        t0 = time.perf_counter()
+        if name == "flash_decode_paged_q8":  # a first figure of a sequence reads high
+            time_ms(lambda *a: kernel(*a, one, scale=sc), arg_sets, iters=100)
+        ms, w_ms = time_ms(lambda *a: kernel(*a, one, scale=sc), arg_sets)
+        pms, w_pms = time_ms(lambda *a: plain(*a, one, scale=sc), arg_sets)
+        lms, w_lms = time_ms(library, arg_sets)
         extra = 4 * (L // ps) if "paged" in name else 0  # the table row, int32
         bms, by = bound_ms(nbytes + io + extra, flops)
-        print(f"  {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"{lib_label} {lms:.4f} ms, bound {bms:.4f} ms, "
-              f"{nbytes / ms / 1e6:.0f} GB/s")
+        wins = {"ms": w_ms, "plain_ms": w_pms, "library_ms": w_lms}
+        clusters = {}
+        if name == "flash_decode_paged_q8":
+            for cl in (8, 16):
+                t_, w_ = time_ms(lambda *a: kernel(*a, one, scale=sc, cluster=cl), arg_sets,
+                                 iters=100)
+                clusters[f"cluster{cl}_ms"] = 32 * t_
+                wins[f"cluster{cl}_ms"] = w_
+        print(f"  {name} 7B layer, context {L}: kernel {ms:.4f} ms [{w_ms}], plain {pms:.4f} ms "
+              f"[{w_pms}], {lib_label} {lms:.4f} ms [{w_lms}], bound {bms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.0f} GB/s"
+              + "".join(f", {k_} {v_ / 32:.4f} [{wins[k_]}]" for k_, v_ in clusters.items()))
         records[name].update(max_abs_err=worst[name][0], max_nmse=worst[name][1], ms=32 * ms,
                              plain_ms=32 * pms, library_ms=32 * lms, bound_ms=32 * bms,
-                             bound_by=by)
+                             bound_by=by, windows=wins, **clusters)
+        if name == "flash_decode_paged_q8":
+            b7_s["timing"] = time.perf_counter() - t0
     # paged f16 / f32 pools (-ctk f16 / f32 --kv-layout paged), the same layer
     by_type = {"bf16": {k: records["flash_decode_paged"][k]
                         for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
@@ -1044,17 +1175,62 @@ def check_decode_variants(records):
         nbytes = 2 * hkv * L * d * dt.itemsize
         arg_sets = [(a[0], a[1].to(dt), a[2].to(dt), a[3])
                     for a in sets["paged"][:n_copies(nbytes)]]
-        ms = time_ms(lambda *a: ka.flash_decode_paged(*a, one, scale=sc), arg_sets)
-        pms = time_ms(lambda *a: ka.flash_decode_paged_plain(*a, one, scale=sc), arg_sets)
-        lms = time_ms(lambda q, kp, vp, tb: F.scaled_dot_product_attention(
+        ms, w_ms = time_ms(lambda *a: ka.flash_decode_paged(*a, one, scale=sc), arg_sets)
+        pms, w_pms = time_ms(lambda *a: ka.flash_decode_paged_plain(*a, one, scale=sc),
+                             arg_sets)
+        lms, w_lms = time_ms(lambda q, kp, vp, tb: F.scaled_dot_product_attention(
             q.to(dt)[:, :, None], ka._gather_pages(kp, tb), ka._gather_pages(vp, tb), scale=sc),
             arg_sets)
         bms, _ = bound_ms(nbytes + io + 4 * (L // ps), flops)
-        print(f"  flash_decode_paged {name} 7B layer, context {L}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, gather + sdpa {lms:.4f} ms, bound {bms:.4f} ms")
+        print(f"  flash_decode_paged {name} 7B layer, context {L}: kernel {ms:.4f} ms [{w_ms}], "
+              f"plain {pms:.4f} ms [{w_pms}], gather + sdpa {lms:.4f} ms [{w_lms}], bound "
+              f"{bms:.4f} ms")
         by_type[name] = {"ms": 32 * ms, "plain_ms": 32 * pms, "library_ms": 32 * lms,
-                         "bound_ms": 32 * bms}
+                         "bound_ms": 32 * bms,
+                         "windows": {"ms": w_ms, "plain_ms": w_pms, "library_ms": w_lms}}
     records["flash_decode_paged"]["by_row_type"] = by_type
+    # B7 at the GQA layers of B2_GQA_ROWS (pages of 128 rows in shuffled
+    # order, B = 1, cold caches), at its own cluster size and at 8 and 16,
+    # beside gather + dequant + sdpa with enable_gqa
+    gqa = {}
+    t0 = time.perf_counter()
+    for label, (hq, hkv_, rows, layers) in B2_GQA_ROWS.items():
+        n = torch.tensor([rows], dtype=torch.int32, device="cuda")
+        arg_sets = []
+        for _ in range(n_copies(2 * hkv_ * L * (d + 4))):
+            tb = torch.randperm(L // ps, generator=cpu_gen).to(torch.int32)[None].to("cuda")
+            arg_sets.append((torch.randn(1, hq, d, generator=gen, device="cuda"),
+                             *_dense_q8(torch.randn(L // ps, hkv_, ps, d, generator=gen,
+                                                    device="cuda")),
+                             *_dense_q8(torch.randn(L // ps, hkv_, ps, d, generator=gen,
+                                                    device="cuda")), tb))
+        time_ms(lambda *a: ka.flash_decode_paged_q8(*a, n, scale=sc), arg_sets, iters=100)
+        timed = {"ms": time_ms(lambda *a: ka.flash_decode_paged_q8(*a, n, scale=sc), arg_sets,
+                               iters=100)}
+        for cl in (8, 16):
+            timed[f"cluster{cl}_ms"] = time_ms(lambda *a: ka.flash_decode_paged_q8(
+                *a, n, scale=sc, cluster=cl), arg_sets, iters=100)
+        timed["plain_ms"] = time_ms(lambda *a: ka.flash_decode_paged_q8_plain(*a, n, scale=sc),
+                                    arg_sets)
+        timed["library_ms"] = time_ms(lambda q, kq, kd, vq, vd, tb: F.scaled_dot_product_attention(
+            q.to(torch.bfloat16)[:, :, None],
+            deq(ka._gather_pages(kq, tb), ka._gather_pages(kd[:, :, 0], tb)[:, :, None])[:, :, :rows],
+            deq(ka._gather_pages(vq, tb), ka._gather_pages(vd[:, :, 0], tb)[:, :, None])[:, :, :rows],
+            scale=sc, enable_gqa=True), arg_sets, iters=100)
+        row = {k_: v_[0] for k_, v_ in timed.items()}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * hkv_ * rows * (d + 4) + 2 * hq * d * 4 + 4 + 4 * (L // ps), 4.0 * hq * rows * d)
+        print(f"  flash_decode_paged_q8 {label} layer (H {hq} / Hkv {hkv_}, {rows} of {L} rows, "
+              f"pages of {ps}): "
+              + ", ".join(f"{k_} {v_[0]:.4f} [{v_[1]}]" for k_, v_ in timed.items())
+              + f", bound_ms {row['bound_ms']:.4f} ms; per token ({layers} layers): kernel "
+              f"{layers * row['ms']:.4f}, library {layers * row['library_ms']:.4f}")
+        gqa[label] = {k_: (layers * v_ if k_.endswith("ms") else v_) for k_, v_ in row.items()}
+        gqa[label]["windows"] = {k_: v_[1] for k_, v_ in timed.items()}
+    records["flash_decode_paged_q8"]["gqa"] = gqa
+    b7_s["timing"] += time.perf_counter() - t0
+    print(f"  flash_decode_paged_q8 at D=128: checks {b7_s['checks']:.1f} s, timing rows "
+          f"{b7_s['timing']:.1f} s")
 
 
 # B4's cases: (label, B, H, Hkv, D, T, n_past per slot, capacity, window,
@@ -1171,22 +1347,25 @@ def _prefill_times(gen, label, h, hkv, d, t, cap, window, dtype, n_past=0):
         mask &= j[None, :] > pos[:, None] - window
     sc = d ** -0.5
     kw = {"scale": sc, "swa_window": window}
-    ms = time_ms(lambda q, k, v, n: flash_prefill(q, k, v, n, **kw), sets, iters=10)
-    pms = time_ms(lambda q, k, v, n: flash_prefill_plain(q, k, v, n, **kw), sets, iters=5)
-    lms = time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
+    ms, w_ms = time_ms(lambda q, k, v, n: flash_prefill(q, k, v, n, **kw), sets, iters=10)
+    pms, w_pms = time_ms(lambda q, k, v, n: flash_prefill_plain(q, k, v, n, **kw), sets,
+                         iters=5)
+    lms, w_lms = time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
         q.transpose(1, 2).to(k.dtype), k[:, :, :n_past + t], v[:, :, :n_past + t],
         attn_mask=mask, scale=sc, enable_gqa=True), sets, iters=10)
     tc, by = bound_ms(nbytes, flops, BF16_FLOPS)
     split, _ = bound_ms(nbytes, 2 * flops, BF16_FLOPS)  # q_hi·k + q_lo·k, P_hi·V + P_lo·V
     f32, _ = bound_ms(nbytes, flops, F32_FLOPS)
     print(f"  flash_prefill {label} layer ({dtype} rows), {t} tokens from {n_past}: kernel "
-          f"{ms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms; bound {tc:.4f} ms on the "
+          f"{ms:.4f} ms [{w_ms}], plain {pms:.4f} ms [{w_pms}], sdpa {lms:.4f} ms [{w_lms}]; "
+          f"bound {tc:.4f} ms on the "
           f"tensor cores ({by}; {split:.4f} with the split's products), {f32:.4f} ms in f32 "
           f"({flops / 1e9:.2f} GFLOP, "
           f"{flops / ms / 1e9:.1f} TFLOP/s useful)")
     del sets
     return {"ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": tc, "bound_by": by,
-            "bound_split_ms": split, "bound_f32_ms": f32}
+            "bound_split_ms": split, "bound_f32_ms": f32,
+            "windows": {"ms": w_ms, "plain_ms": w_pms, "library_ms": w_lms}}
 
 
 def check_flash_prefill(records):
@@ -1241,10 +1420,13 @@ def check_flash_prefill(records):
     # time: Gemma-3-12B's layer kinds at a 1500-token prompt (n_past 0)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "bound_split_ms": 0.0, "bound_f32_ms": 0.0}
+    wins = {}
     for (kind, window), n_layers in zip((("SWA", 1024), ("full", 0)), GEMMA3_LAYERS):
         r = _prefill_times(gen, f"Gemma-3-12B {kind}", 16, 8, 256, 1500, 2048, window, "bf16")
         for key in totals:
             totals[key] += n_layers * r[key]
+        for key, w_ in r["windows"].items():
+            add_window(wins, key, w_)
         by = r["bound_by"]
     print(f"  flash_prefill per Gemma-3-12B prefill of 1500 tokens (48 layers): "
           + ", ".join(f"{k} {v:.3f}" for k, v in totals.items()))
@@ -1256,7 +1438,7 @@ def check_flash_prefill(records):
     f32_rows = _prefill_times(gen, "Llama-3-8B f32 continued", 32, 8, 128, 300, 1024, 0,
                               "f32", n_past=200)
     records["flash_prefill"].update(max_abs_err=worst[0], max_nmse=worst[1], bound_by=by,
-                                    d128=d128, f32_rows=f32_rows, **totals)
+                                    d128=d128, f32_rows=f32_rows, windows=wins, **totals)
 
 
 # the decode kernels at D = 256: Gemma-3-12B's heads, B = 4 ragged slots
@@ -1273,7 +1455,9 @@ def check_decode_d256(records):
     planes swapped). B2 also over B2_CACHES (770 and 4096 rows; f32 rows at
     4096 stream through its ring). Timed at the Gemma-3-12B CLI's decode
     (1532 rows: 40 SWA layers over 1024 of them, 8 full layers), per token;
-    B2 at both cluster sizes too."""
+    B2 and B7 at both cluster sizes too. B7 is checked at cluster sizes 0,
+    8 and 16, also over B7_CACHES, with its faults (b7_faults) at
+    B7_FAULT_MARGIN x the limit."""
     import torch
     import torch.nn.functional as F
 
@@ -1290,16 +1474,25 @@ def check_decode_d256(records):
     def swap(dd):  # Q4: each row takes its sibling's scales
         return torch.cat([dd[:, :, g:], dd[:, :, :g]], dim=2)
 
+    b7_s = {}  # seconds of B7's checks and of its timing rows
+
     def run_case(name, label, kernel, plain, args, lengths, extra_faults=None, swa=None):
+        with seconds_into(b7_s if name == "flash_decode_paged_q8" else {}, "checks"):
+            run_cases(name, label, kernel, plain, args, lengths, extra_faults, swa)
+
+    def run_cases(name, label, kernel, plain, args, lengths, extra_faults, swa):
         if swa is None:
             swa = torch.clamp(lengths - D256_WINDOW, min=0)
         for case, starts, cap in (("full", None, 0.0), ("swa", swa, 0.0),
                                   ("softcap", None, 50.0)):
-            got = kernel(*args, lengths, starts, scale=sc, softcap=cap)
             want = plain(*args, lengths, starts, scale=sc, softcap=cap)
             st = torch.zeros_like(lengths) if starts is None else starts
+            clusters, margin = (None,), 1.0
             if name == "flash_decode":
                 faults = b2_faults(plain, *args, lengths, starts, scale=sc, softcap=cap)
+            elif name == "flash_decode_paged_q8":
+                faults = b7_faults(plain, *args, lengths, starts, scale=sc, softcap=cap)
+                clusters, margin = ka.CLUSTERS, B7_FAULT_MARGIN
             else:
                 faults = {"first row dropped": plain(*args, lengths, st + 1, scale=sc,
                                                      softcap=cap),
@@ -1308,11 +1501,15 @@ def check_decode_d256(records):
             if extra_faults:
                 for fname, fargs in extra_faults.items():
                     faults[fname] = plain(*fargs, lengths, starts, scale=sc, softcap=cap)
-            torch.cuda.synchronize()
-            w = worst[name]
-            w[0] = max(w[0], float((got - want).abs().max()))
-            w[1] = max(w[1], check_slots(f"{name} D=256 {label} {case}", got, want, faults,
-                                         FLASH_NMSE_TOL))
+            for cl in clusters:
+                kw = {} if cl is None else {"cluster": cl}
+                got = kernel(*args, lengths, starts, scale=sc, softcap=cap, **kw)
+                torch.cuda.synchronize()
+                w = worst[name]
+                w[0] = max(w[0], float((got - want).abs().max()))
+                tag = f"{name} D=256 {label} {case}" + (
+                    "" if cl is None else f" cluster {cl or 'auto'}")
+                w[1] = max(w[1], check_slots(tag, got, want, faults, FLASH_NMSE_TOL, margin))
 
     for s, lens in D256_LENGTHS.items():
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -1343,6 +1540,16 @@ def check_decode_d256(records):
             run_case("flash_decode_paged_q8", f"S={s} ps={ps}", ka.flash_decode_paged_q8,
                      ka.flash_decode_paged_q8_plain, (q, kpq, kpd, vpq, vpd, tables), lengths)
         del q, k, v
+    for s, ps, lens, sts in B7_CACHES:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(4, h, d, generator=gen, device="cuda")
+        tables, n_pages = _paged_tables(lens, ps, s, cpu_gen)
+        kpq, kpd = _dense_q8(torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda"))
+        vpq, vpd = _dense_q8(torch.randn(n_pages, hkv, ps, d, generator=gen, device="cuda"))
+        run_case("flash_decode_paged_q8", f"S={s} ps={ps}", ka.flash_decode_paged_q8,
+                 ka.flash_decode_paged_q8_plain, (q, kpq, kpd, vpq, vpd, tables), lengths,
+                 swa=torch.tensor(sts, dtype=torch.int32, device="cuda"))
+        del kpq, kpd, vpq, vpd
     for s, (lens, sts) in B2_CACHES.items():
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         swa = torch.tensor(sts, dtype=torch.int32, device="cuda")
@@ -1401,29 +1608,41 @@ def check_decode_d256(records):
                 lo)),
     }
     for name, (key, kernel, plain, library) in layouts.items():
+        t0 = time.perf_counter()
         arg_sets = [(st["q"], *st[key]) for st in sets]
         per_token = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        wins = {}
+        if name == "flash_decode_paged_q8":  # a first figure of a sequence reads high
+            time_ms(lambda *a: kernel(*a, one, scale=sc), arg_sets)
         for (kind, lo), n_layers in zip((("SWA", L - D256_WINDOW), ("full", 0)), GEMMA3_LAYERS):
             starts = torch.tensor([lo], dtype=torch.int32, device="cuda") if lo else None
-            ms = time_ms(lambda *a: kernel(*a, one, starts, scale=sc), arg_sets)
-            pms = time_ms(lambda *a: plain(*a, one, starts, scale=sc), arg_sets)
-            lms = time_ms(lambda *a: library(*a, lo), arg_sets)
+            timed = {"ms": time_ms(lambda *a: kernel(*a, one, starts, scale=sc), arg_sets),
+                     "plain_ms": time_ms(lambda *a: plain(*a, one, starts, scale=sc), arg_sets),
+                     "library_ms": time_ms(lambda *a: library(*a, lo), arg_sets)}
+            if name in ("flash_decode", "flash_decode_paged_q8"):
+                for cl in (8, 16):
+                    timed[f"cluster{cl}_ms"] = time_ms(
+                        lambda *a: kernel(*a, one, starts, scale=sc, cluster=cl), arg_sets)
             extra = 4 * (cap // ps) if "paged" in name else 0  # the table row, int32
             bms, by = bound_ms(2 * hkv * (L - lo) * row_bytes[name] + io + extra,
                                4.0 * h * (L - lo) * d)
-            times = {"ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms}
-            if name == "flash_decode":
-                for cl in (8, 16):
-                    times[f"cluster{cl}_ms"] = time_ms(lambda q, k, v: ka.flash_decode_cluster(
-                        q, k, v, one, starts, scale=sc, cluster=cl), arg_sets)
+            times = {k_: v_[0] for k_, v_ in timed.items()}
+            times["bound_ms"] = bms
             for k_, v_ in times.items():
                 per_token[k_] = per_token.get(k_, 0.0) + n_layers * v_
+            for k_, v_ in timed.items():
+                add_window(wins, k_, v_[1])
             print(f"  {name} D=256 Gemma-3-12B {kind} layer at {L} rows: "
-                  + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in times.items()) + " ms")
+                  + ", ".join(f"{k_} {v_[0]:.4f} [{v_[1]}]" for k_, v_ in timed.items())
+                  + f", bound_ms {bms:.4f} ms")
         print(f"  {name} D=256 per Gemma-3-12B token (48 layers): "
               + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in per_token.items()))
         records[name]["d256"] = {**per_token, "bound_by": by, "max_abs_err": worst[name][0],
-                                 "max_nmse": worst[name][1]}
+                                 "max_nmse": worst[name][1], "windows": wins}
+        if name == "flash_decode_paged_q8":
+            b7_s["timing"] = time.perf_counter() - t0
+    print(f"  flash_decode_paged_q8 at D=256: checks {b7_s['checks']:.1f} s, timing rows "
+          f"{b7_s['timing']:.1f} s")
 
 
 # per slot, of the output and of the written K/V rows: the plain version
@@ -1506,18 +1725,18 @@ def check_attn_fused(records):
     for _ in range(n_copies(w_bytes + kv_bytes)):
         w, x, kc, vc, cos, sin, lengths = inputs(1, h, hkv, [L])
         sets.append((x, w, kc, vc, cos, sin, lengths))
-    ms = time_ms(lambda *a: attn_decode_fused(*a, n_heads=h, n_kv_heads=hkv,
-                                              scale=d ** -0.5), sets)
-    pms = time_ms(lambda x, w, kc, vc, cs, sn, ln: attn_fused_plain(
+    ms, w_ms = time_ms(lambda *a: attn_decode_fused(*a, n_heads=h, n_kv_heads=hkv,
+                                                    scale=d ** -0.5), sets)
+    pms, w_pms = time_ms(lambda x, w, kc, vc, cs, sn, ln: attn_fused_plain(
         x, w, kc, vc, cs, sn, ln, None, ln - 1, n_heads=h, n_kv_heads=hkv, scale=d ** -0.5),
         sets, iters=5)
-    print(f"  attn_fused 7B layer, context {L + 1}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"{(w_bytes + kv_bytes) / ms / 1e6:.0f} GB/s")
+    print(f"  attn_fused 7B layer, context {L + 1}: kernel {ms:.4f} ms [{w_ms}], plain "
+          f"{pms:.4f} ms [{w_pms}], {(w_bytes + kv_bytes) / ms / 1e6:.0f} GB/s")
     bms, by = bound_ms(w_bytes + kv_bytes + kdim * 2 + h * d * 4 + 2 * hkv * d * 2,
                        2.0 * (h + 2 * hkv) * d * kdim + 4.0 * h * (L + 1) * d)
     records["attn_fused"].update(max_abs_err=worst, max_nmse=worst_nmse, ms=32 * ms,
                                  plain_ms=32 * pms, library_ms=None, bound_ms=32 * bms,
-                                 bound_by=by)
+                                 bound_by=by, windows={"ms": w_ms, "plain_ms": w_pms})
 
 
 # MLA decode (B10) at DeepSeek-V2-Lite's shapes: H 16 heads, C = 512 + 64
@@ -1571,24 +1790,26 @@ def check_mla_decode(records):
             q = torch.randn(1, MLA_H, MLA_C, generator=gen, device="cuda") * 0.3
             c = torch.randn(1, 1, cap, MLA_C, generator=gen, device="cuda").to(torch.bfloat16)
             sets.append((q, c))
-        ms = time_ms(lambda q, c: mla_flash_decode(q, c, one, scale=scale, r=MLA_R), sets)
-        pms = time_ms(lambda q, c: mla_flash_decode_plain(q, c, one, scale=scale, r=MLA_R),
-                      sets, iters=10)
+        ms, w_ms = time_ms(lambda q, c: mla_flash_decode(q, c, one, scale=scale, r=MLA_R),
+                           sets)
+        pms, w_pms = time_ms(lambda q, c: mla_flash_decode_plain(q, c, one, scale=scale,
+                                                                 r=MLA_R), sets, iters=10)
         # yardstick: SDPA with the latent expanded to H heads (K = c, V = c[..., :r])
-        lms = time_ms(lambda q, c: F.scaled_dot_product_attention(
+        lms, w_lms = time_ms(lambda q, c: F.scaled_dot_product_attention(
             q.to(torch.bfloat16)[:, :, None], c[:, :, :L].expand(-1, MLA_H, -1, -1),
             c[:, :, :L, :MLA_R].expand(-1, MLA_H, -1, -1), scale=scale), sets, iters=10)
         # f32 products, as the TPU kernel's Precision.HIGHEST
         bms, by = bound_ms(c_bytes + MLA_H * MLA_C * 4 + MLA_H * MLA_R * 4,
                            2.0 * MLA_H * L * (MLA_C + MLA_R), F32_FLOPS)
-        print(f"  mla_decode one layer, context {L} of {cap}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.5f} ms ({by}), "
-              f"{c_bytes / ms / 1e6:.0f} GB/s")
-        per_token[L] = (ms, pms, lms, bms, by)
-    ms, pms, lms, bms, by = per_token[512]
+        print(f"  mla_decode one layer, context {L} of {cap}: kernel {ms:.4f} ms [{w_ms}], "
+              f"plain {pms:.4f} ms [{w_pms}], sdpa {lms:.4f} ms [{w_lms}], bound {bms:.5f} ms "
+              f"({by}), {c_bytes / ms / 1e6:.0f} GB/s")
+        per_token[L] = (ms, pms, lms, bms, by, {"ms": w_ms, "plain_ms": w_pms,
+                                                "library_ms": w_lms})
+    ms, pms, lms, bms, by, wins = per_token[512]
     records["mla_decode"].update(max_abs_err=worst, max_nmse=worst_nmse, ms=27 * ms,
                                  plain_ms=27 * pms, library_ms=27 * lms, bound_ms=27 * bms,
-                                 bound_by=by)
+                                 bound_by=by, windows=wins)
 
 
 # ---------------------------------------------------------------------------
@@ -1832,9 +2053,12 @@ def write_model(path: Path, cfg_name: str, ftype: str, seed: int, vocab: str = "
 
 
 # synthetic GGUF → the phases that read it, in the order the phases run
-FILE_PHASES = {"7b": ("main", "serve"), "l3": ("llama3", "kv8b"), "q5": ("q5km",),
-               "mx": ("mixtral",), "ds": ("deepseek",), "q25": ("qwen",), "q3": ("qwen",),
-               "g3": ("gemma",), "iq4xs": ("iq",), "iq2m": ("iq",)}
+# in the order the phases take them: the writer keeps one file ahead, so
+# Mixtral's 28.5 GB is written during llama3 and kv8b, and the short q5km
+# phase comes last
+FILE_PHASES = {"7b": ("main", "serve"), "l3": ("llama3", "kv8b"), "mx": ("mixtral",),
+               "ds": ("deepseek",), "q25": ("qwen",), "q3": ("qwen",), "g3": ("gemma",),
+               "iq4xs": ("iq",), "iq2m": ("iq",), "q5": ("q5km",)}
 
 
 class BackgroundGGUFs:
@@ -2061,21 +2285,29 @@ def _rel(a, b) -> float:
 # an MoE layer of the batched decode step, rerun at B=1 on the same input
 # row, must give the same output: B9 computes a row alike at any S and the
 # router and the rest of the layer are row-wise; the first layer's input
-# (embedding, attention) must agree with the B=1 reference's
+# (embedding, attention) must agree with the reference's
 MOE_LAYER_RTOL = 1e-3
 
 
 def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
-                          moe_log: list | None = None):
-    """LlamaContext's computation on the engine's weights: `forward` at B=1
-    over a contiguous cache of the engine's row type (bf16, Q8_0 or Q4_0; for
-    Q4_0 pages, one sequence's Q4_0 pages, whose decode dequantizes them as
-    the engine's does), the prompt as one prefill, then one decode step on
-    the prompt's argmax.
-    Returns (that token, the decode step's logits, the row type). The row
-    type is the engine's, so the comparison isolates the engine's path
-    (slots or pages, packed prefill, batched decode) from the rounding of
-    quantized rows, to which a random-weight model can be very sensitive.
+                          moe_log: list | None = None, own_layout: bool = True):
+    """LlamaContext's computation on the engine's weights: `forward` over a
+    cache of its own with the engine's row type (bf16, Q8_0 or Q4_0), the
+    prompt as one prefill, then one decode step on the prompt's argmax.
+    Returns (that token, the decode step's logits of row 0, the cache's
+    description).
+
+    own_layout: the engine's layout (slots or pages) at the engine's batch
+    width, the prompt in every row, its own slot each. The kernels then tile
+    both steps alike (B1 splits K by B, B2 / B7 choose their cluster size
+    from B·Hkv), so the comparison holds the engine's bookkeeping (slots or
+    pages, packed prefill, batched decode) bit for bit; that the kernels
+    compute the right thing is held layer by layer (`_checking_kernels`).
+    Otherwise B=1 over a contiguous cache (Q4_0 pages: one sequence's
+    pages), which runs other kernels or other tilings than the engine's
+    step; a random 8B-size model grows their last-bit differences to 1-2e-2
+    over its layers (Llama-3-8B IQ4_XS: slots bf16 1.8e-2, paged q8_0
+    2.0-2.1e-2; PERF.md §6).
 
     as_engine: the prompt as the engine's slot prefill runs it
     (`Engine._prefill_slot`: one chunk of the bucket's length, the padding
@@ -2091,32 +2323,38 @@ def _reference_first_step(engine, prompt: list[int], as_engine: bool = False,
 
     from llama_cpp_dsp_tpu_torch.models.llama import forward
     from llama_cpp_dsp_tpu_torch.runtime.kv_cache import Q4KVCache, QuantKVCache, make_kv_cache
-    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import PagedQ4KVCache, PagedQuantKVCache
+    from llama_cpp_dsp_tpu_torch.runtime.paged_kv import (PagedKVCache, PagedQ4KVCache,
+                                                          PagedQuantKVCache)
 
     cfg = engine.cfg
+    b = engine.n_slots if own_layout else 1
     kv = ("q8_0" if isinstance(engine.cache, (QuantKVCache, PagedQuantKVCache)) else
           "q4_0" if isinstance(engine.cache, (Q4KVCache, PagedQ4KVCache)) else "bf16")
-    if isinstance(engine.cache, PagedQ4KVCache):  # the same attention path: one sequence's
-        # pages, dequantized, then flash_decode
+    paged = isinstance(engine.cache, (PagedKVCache, PagedQuantKVCache, PagedQ4KVCache))
+    if paged and (own_layout or isinstance(engine.cache, PagedQ4KVCache)):
+        # the same attention path: pages of the engine's size, nb a row
         nb, ps = engine.cache.tables.shape[1], engine.cache.page_size
-        cache = PagedQ4KVCache.create(cfg.n_layers, nb, 1, nb, cfg.kv_cache_heads,
-                                      cfg.kv_cache_dim, page_size=ps, device="cuda")
-        cache.set_table_row(0, np.arange(nb, dtype=np.int32))
-        kv = "paged q4_0"
+        rows = {"dtype": engine.cache.k[0].dtype} if isinstance(engine.cache, PagedKVCache) else {}
+        cache = type(engine.cache).create(cfg.n_layers, b * nb, b, nb, cfg.kv_cache_heads,
+                                          cfg.kv_cache_dim, page_size=ps, device="cuda", **rows)
+        for i in range(b):
+            cache.set_table_row(i, np.arange(i * nb, (i + 1) * nb, dtype=np.int32))
+        kv = f"paged {kv}"
     else:
-        cache = make_kv_cache(cfg.n_layers, 1, engine.cache.capacity, cfg.kv_cache_heads,
+        cache = make_kv_cache(cfg.n_layers, b, engine.cache.capacity, cfg.kv_cache_heads,
                               cfg.kv_cache_dim, kv, "cuda")
+    kv = f"B={b} forward over a {kv} cache"
     n = len(prompt)
     t = engine._bucket(n) if as_engine else n
-    toks = torch.zeros(1, t, dtype=torch.long)
-    toks[0, :n] = torch.tensor(prompt)
-    pos = torch.zeros(1, t, dtype=torch.int32)
-    pos[0, :n] = torch.arange(n)
+    toks = torch.zeros(b, t, dtype=torch.long)
+    toks[:, :n] = torch.tensor(prompt)
+    pos = torch.zeros(b, t, dtype=torch.int32)
+    pos[:, :n] = torch.arange(n)
     logits = forward(engine.params, cfg, toks.to("cuda"), pos.to("cuda"), cache, 0)
     tok = int(logits[0, n - 1].argmax())
     with _record_moe([] if moe_log is None else moe_log):
-        step = forward(engine.params, cfg, torch.tensor([[tok]], device="cuda"),
-                       torch.tensor([[n]], dtype=torch.int32, device="cuda"), cache, n)
+        step = forward(engine.params, cfg, torch.full((b, 1), tok, device="cuda"),
+                       torch.full((b, 1), n, dtype=torch.int32, device="cuda"), cache, n)
     return tok, step[0, 0].float().cpu().numpy(), kv
 
 
@@ -2125,8 +2363,12 @@ def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
     batched decode step through `forward` at B=4 with the fourth slot idle
     (its write offset is the capacity). Fails unless the idle slot's rows are
     byte-identical afterwards, prompts[0]'s logits agree with
-    `_reference_first_step`'s and the step launched every kernel of `must`.
-    Returns the relative diff."""
+    `_reference_first_step`'s at the engine's width and layout, the step
+    launched every kernel of `must`, and every kernel launch of the step is
+    within its limit of its plain version on the same inputs
+    (`_checking_kernels`). The B=1 reference over a contiguous cache is
+    printed beside it, not gated (see `_reference_first_step`). Returns the
+    relative diff."""
     import numpy as np
     import torch
 
@@ -2163,21 +2405,30 @@ def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
     offs[idle] = engine.cache.capacity
     before = _slot_state(engine.cache, idle)
     reset_launches()
-    with _record_moe(eng_moe):
+    checked = {}
+    with _record_moe(eng_moe), _checking_kernels(checked):
         logits = forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"),
                          engine.cache, offs.to("cuda"))[:, 0]
     torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
     if must:
-        require(dict(LAUNCHES), list(must), f"B={b} decode step")
+        require(launched, list(must), f"B={b} decode step")
+    _report_checked(checked, launched, f"B={b} decode step")
     same = all(torch.equal(a, c) for a, c in zip(before, _slot_state(engine.cache, idle)))
     got = logits[where[0]].float().cpu().numpy()
     rel = float(np.abs(got - ref_logits).max() / np.abs(ref_logits).max())
     print(f"  idle slot {idle} byte-identical after a B={b} decode step: {same}; first decode "
-          f"logits vs a B=1 forward over a one-sequence {kv} cache"
+          f"logits vs the prompt's own {kv}"
           f"{' (prefilled as the engine does)' if moe else ''}: max rel diff {rel:.3e} "
           f"({'MoE: gated layer by layer below' if moe else f'tol {LOGIT_RTOL:g}'}); "
           f"engine's own first token {reqs[0].result_tokens[0]} vs "
           f"{ref_token}")
+    if not moe:  # other kernels or tilings than the step's (printed, not gated)
+        tok1, logits1, kv1 = _reference_first_step(engine, list(prompts[0]), own_layout=False)
+        print(f"  the same logits vs a {kv1}: " + (
+            f"max rel diff {float(np.abs(got - logits1).max() / np.abs(logits1).max()):.3e} "
+            f"(not gated)" if tok1 == ref_token else
+            f"its prompt's argmax {tok1} differs from {ref_token} (not gated)"))
     if not same:
         fail("a batched decode step changed an idle slot's cache rows")
     if not np.isfinite(got).all():
@@ -2185,7 +2436,7 @@ def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
     if moe:
         _check_moe_layers(engine, ref_moe, eng_moe, where[0], rel)
     elif rel >= LOGIT_RTOL:
-        fail("first decode-step logits disagree with the B=1 forward")
+        fail("first decode-step logits disagree with the reference forward")
     # the same step again (it rewrites the same rows), profiled
     print(f"  B={b} decode step (three slots decoding, one idle):")
     profile_steps(lambda: forward(engine.params, engine.cfg, toks.to("cuda"), pos.to("cuda"),
@@ -2194,7 +2445,7 @@ def _idle_slot_and_first_logits(engine, prompts, must=()) -> float:
 
 
 def _check_moe_layers(engine, ref_moe: list, eng_moe: list, row: int, rel: float) -> None:
-    """The MoE engine's batched decode step against the B=1 reference, layer
+    """The MoE engine's batched decode step against the reference, layer
     by layer. The logits are not gated: a random 32-layer MoE is chaotic,
     so the last-bit differences between a batched and a B=1 step (another
     FMA contraction in the K-quant GEMV, another cuBLAS kernel for the
@@ -2209,14 +2460,14 @@ def _check_moe_layers(engine, ref_moe: list, eng_moe: list, row: int, rel: float
     drift = [_rel(x[row], rx[0]) for (x, _, _), (rx, _, _) in zip(eng_moe, ref_moe)]
     print(f"  MoE layers of the B={engine.n_slots} step rerun at B=1 on the same input row: "
           f"worst rel diff {max(layer_rel):.3e} over {len(layer_rel)} layers (tol "
-          f"{MOE_LAYER_RTOL:g}); FFN input against the B=1 reference's, layers 0, 4, 8, ...: "
+          f"{MOE_LAYER_RTOL:g}); FFN input against the reference's, layers 0, 4, 8, ...: "
           f"{' '.join(f'{d:.1e}' for d in drift[::4])} (layer 0 tol {MOE_LAYER_RTOL:g}); "
           f"the logits' {rel:.3e} is that drift at the end (not gated)")
     n_moe = sum("ffn_gate_exps" in layer for layer in engine.params["layers"])
     if not (len(layer_rel) == n_moe and max(layer_rel) < MOE_LAYER_RTOL):
         fail("an MoE layer of the batched decode step disagrees with its B=1 rerun")
     if not drift[0] < MOE_LAYER_RTOL:
-        fail("the batched decode step's first layer disagrees with the B=1 reference")
+        fail("the batched decode step's first layer disagrees with the reference")
 
 
 def _cache_bytes(cache) -> int:
@@ -2544,9 +2795,10 @@ def _amplifier_witness(model, prompt: list, q4_codes: tuple) -> None:
 
 
 def _recording(calls: list):
-    """A flash_decode_q4 that records each call's q, other arguments and
-    output. The cache planes it reads are the layers' own buffers, which the
-    rest of the step leaves as they were."""
+    """A decode attention wrapper (flash_decode_q4, flash_decode_paged_q8)
+    that records each call's q, other arguments and output. The cache planes
+    it reads are the layers' own buffers, which the rest of the step leaves
+    as they were."""
     def wrap(kernel):
         def run(q, *args, **kw):
             out = kernel(q, *args, **kw)
@@ -2554,6 +2806,113 @@ def _recording(calls: list):
             return out
         return run
     return wrap
+
+
+@contextlib.contextmanager
+def _checking_kernels(checked: dict):
+    """Inside the block every kernel wrapper that a decode step can launch
+    (B1, B9, B2, B3, B5-B8, B10) runs its plain version on the same inputs
+    after the kernel, and checked[counter] collects each call's worst
+    per-slot (attention) or per-row (GEMV) NMSE beside its limit: the
+    engine's own step, kernel by kernel, at each kernel's limit. B3 writes
+    the new K/V row into the cache it reads: its plain version runs on
+    copies taken before the call, and its written rows are held too. B3's
+    plain version is held with the kernel's weight arithmetic (exact f32
+    dequantized q|k|v weights, as B1's checks also hold it): with the
+    plain version's bf16-rounded weights a real step's peaked softmax
+    grows that rounding past the limit (8.0e-5 on the 7B; printed beside
+    it, not gated)."""
+    import torch
+
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attention as ka
+    from llama_cpp_dsp_tpu_torch.ops.kernels import attn_fused as af
+    from llama_cpp_dsp_tpu_torch.ops.kernels import qmm as kq
+    from llama_cpp_dsp_tpu_torch.quant.dequant import dequant
+
+    def note(name, tol, errs):
+        checked.setdefault(name, ([], tol))[0].append(max(errs))
+
+    def exact(x, w):  # B1's and B3's weight arithmetic
+        return x.to(torch.bfloat16).float() @ dequant(w, torch.float32).T
+
+    def attention(name, plain, tol):
+        def wrap(kernel):
+            def run(*args, **kw):
+                out = kernel(*args, **kw)
+                note(name, tol, slot_nmse(out, plain(*args, **kw)))
+                return out
+            return run
+        return wrap
+
+    def fused(kernel):
+        def run(x, w, k_cache, v_cache, *rest, **kw):
+            refs = [(k_cache.clone(), v_cache.clone()) for _ in range(2)]
+            out = kernel(x, w, k_cache, v_cache, *rest, **kw)
+            wp = rest[4]
+            rows = [i for i in range(x.shape[0]) if 0 <= int(wp[i]) < k_cache.shape[2]]
+            for (k_ref, v_ref), name, tol in zip(refs, ("attn_fused", "attn_fused, bf16 weights"),
+                                                 (FUSED_NMSE_TOL, None)):
+                rounded = af.qmm_plain
+                if tol is not None:
+                    af.qmm_plain = exact
+                try:
+                    want = af.attn_fused_plain(x, w, k_ref, v_ref, *rest, **kw)
+                finally:
+                    af.qmm_plain = rounded
+                note(name, tol, slot_nmse(out, want) + [
+                    nmse(c[i, :, int(wp[i])], r[i, :, int(wp[i])])
+                    for i in rows for c, r in ((k_cache, k_ref), (v_cache, v_ref))])
+            return out
+        return run
+
+    def gemv(kernel):
+        def run(x, w):
+            out = kernel(x, w)
+            n = out.shape[-1]
+            note(kq._counter(w.kind), QMM_NMSE_TOL,
+                 slot_nmse(out.reshape(-1, n), kq.qmm_plain(x, w).reshape(-1, n)))
+            return out
+        return run
+
+    def experts(kernel):
+        def run(x, w, sel):
+            out = kernel(x, w, sel)
+            note(kq._counter(w.kind, experts=True), QMM_NMSE_TOL,
+                 slot_nmse(out, kq.qmm_expert_rows_plain(x, w, sel)))
+            return out
+        return run
+
+    swaps = [(ka, name, attention(name, getattr(ka, f"{name}_plain"), FLASH_NMSE_TOL))
+             for name in ("flash_decode", "flash_decode_q8", "flash_decode_q4",
+                          "flash_decode_paged", "flash_decode_paged_q8")]
+    swaps += [(ka, "mla_flash_decode", attention("mla_decode", ka.mla_flash_decode_plain,
+                                                 MLA_NMSE_TOL)),
+              (af, "attn_decode_fused", fused), (kq, "qmm", gemv),
+              (kq, "qmm_expert_rows", experts)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, wrap in swaps:
+        setattr(mod, name, wrap(getattr(mod, name)))
+    try:
+        yield checked
+    finally:
+        for mod, name, kernel in kept:
+            setattr(mod, name, kernel)
+
+
+def _report_checked(checked: dict, launched: dict, label: str) -> None:
+    """Print `_checking_kernels`' results; fail unless every launch of the
+    step was checked and each is within its limit."""
+    for name, (errs, tol) in sorted(checked.items()):
+        print(f"  {label}: {name}, {len(errs)} calls against the plain version on the same "
+              f"inputs: worst NMSE {max(errs):.1e} "
+              + ("(not gated)" if tol is None else f"(tol {tol:g})"))
+    unchecked = {k: v for k, v in launched.items() if len(checked.get(k, ((), 0))[0]) != v}
+    if unchecked:
+        fail(f"{label}: launches not held against a plain version: {unchecked}")
+    bad = [name for name, (errs, tol) in checked.items()
+           if tol is not None and not (max(errs) <= tol and all(e == e for e in errs))]
+    if bad:
+        fail(f"{label}: {', '.join(bad)} disagree with their plain versions")
 
 
 def phase_kv8b(records: dict, path: Path, model) -> None:
@@ -3277,7 +3636,7 @@ SOURCES = {  # name → (source, TPU kernel it replaces, tolerance against the p
     "flash_decode_paged": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
                            "llama_cpp_dsp_tpu/ops/pallas/attention.py:1022",
                            f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
-    "flash_decode_paged_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode.cu",
+    "flash_decode_paged_q8": ("llama_cpp_dsp_tpu_torch/csrc/flash_decode_gqa_paged_q8.cu",
                               "llama_cpp_dsp_tpu/ops/pallas/attention.py:1277",
                               f"per-slot nmse <= {FLASH_NMSE_TOL:g}"),
     "qmm_q4_k": ("llama_cpp_dsp_tpu_torch/csrc/qmm.cu",
@@ -3384,7 +3743,16 @@ def main(argv=None) -> int:
         files[key][0].unlink(missing_ok=True)
         torch.cuda.empty_cache()
 
-    kernel_checks = {  # name → the kernels phase's checks of that kernel family
+    # name → the kernels phase's checks of that kernel family, attention first: after
+    # the qmm checks most torch.profiler windows lose events (PERF.md §7)
+    kernel_checks = {
+        "flash_decode": lambda: check_flash_decode(records),
+        "flash_decode_q4": lambda: check_flash_decode_q4(records),
+        "attn_fused": lambda: check_attn_fused(records),
+        "decode_variants": lambda: check_decode_variants(records),
+        "mla_decode": lambda: check_mla_decode(records),
+        "decode_d256": lambda: check_decode_d256(records),
+        "flash_prefill": lambda: check_flash_prefill(records),
         "qmm": lambda: (check_qmm("q4_0", QMM_SHAPES_7B, (1, 8, 128),
                                   DECODE_CALLS_7B, records),
                         check_qmm("q8_0", QMM_SHAPES_7B, (1, 8, 128), {}, records),
@@ -3432,18 +3800,17 @@ def main(argv=None) -> int:
                                                     rows=QWEN_EXPERT_ROWS,
                                                     decode_calls=QWEN_DECODE_CALLS_IQ,
                                                     s_time=8)
-                                  for k in IQ_KINDS)),
-        "flash_decode": lambda: check_flash_decode(records),
-        "flash_decode_q4": lambda: check_flash_decode_q4(records),
-        "attn_fused": lambda: check_attn_fused(records),
-        "decode_variants": lambda: check_decode_variants(records),
-        "mla_decode": lambda: check_mla_decode(records),
-        "decode_d256": lambda: check_decode_d256(records),
-        "flash_prefill": lambda: check_flash_prefill(records)}
+                                  for k in IQ_KINDS))}
     checks = list(kernel_checks) if args.kernels is None else args.kernels.split(",")
     if set(checks) - set(kernel_checks):
         fail(f"--kernels takes a subset of {','.join(kernel_checks)}")
-    steps = [("kernels", lambda: [kernel_checks[c]() for c in checks]),
+    def run_kernel_checks():
+        for c in checks:
+            t0 = time.perf_counter()
+            kernel_checks[c]()
+            print(f"  [kernels] {c}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    steps = [("kernels", run_kernel_checks),
              ("small", phase_small),
              ("main", lambda: phase_main(records, files["7b"][0], model_of("7b"))),
              ("serve", lambda: (phase_serve(records, files["7b"][0], model_of("7b")),
@@ -3455,7 +3822,6 @@ def main(argv=None) -> int:
                                  "kv8b" in phases or done_with("l3"))),
              ("kv8b", lambda: (phase_kv8b(records, files["l3"][0], model_of("l3")),
                                done_with("l3"))),
-             ("q5km", lambda: (phase_q5km(records, ggufs.ready("q5")), done_with("q5"))),
              ("small_moe", lambda: phase_small_moe(records)),
              ("mixtral", lambda: (phase_mixtral(records, files["mx"][0], model_of("mx")),
                                   done_with("mx"))),
@@ -3467,7 +3833,8 @@ def main(argv=None) -> int:
              ("small_gemma", lambda: phase_small_gemma(records)),
              ("gemma", lambda: phase_gemma(records, files, model_of, done_with)),
              ("small_iq", lambda: phase_small_iq(records)),
-             ("iq", lambda: phase_iq(records, files, model_of, done_with))]
+             ("iq", lambda: phase_iq(records, files, model_of, done_with)),
+             ("q5km", lambda: (phase_q5km(records, ggufs.ready("q5")), done_with("q5")))]
     ggufs = BackgroundGGUFs(files, [key for key, uses in FILE_PHASES.items()
                                     if set(uses) & set(phases)])
     try:
@@ -3495,10 +3862,11 @@ def main(argv=None) -> int:
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("ms_b4", "by_row_type", "gqa", "d256",
+                        **{k: r[k] for k in ("windows", "ms_b4", "by_row_type", "gqa", "d256",
                                              "carrier_bound_ms",
                                              "bound_split_ms", "bound_f32_ms", "d128",
-                                             "f32_rows") if k in r}})
+                                             "f32_rows", "cluster8_ms", "cluster16_ms")
+                                   if k in r}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

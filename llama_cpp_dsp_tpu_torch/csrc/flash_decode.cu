@@ -1,9 +1,10 @@
 // flash_decode.cu — T=1 attention of q[B,H,D] f32 over one slot's cached
 // rows [start_b, length_b); GQA groups of rep = H/Hkv query heads share a kv
-// head; optional logit softcap. Output [B,H,D] f32. The C entry
-// flash_decode (dense rows of bf16, f16 or f32, B2) runs the cluster
-// kernel of flash_decode_gqa.cuh. The other layouts run one templated
-// split kernel:
+// head; optional logit softcap. Output [B,H,D] f32. Two C entries run the
+// cluster kernel of flash_decode_gqa.cuh: flash_decode (dense rows of bf16,
+// f16 or f32, B2) and flash_decode_paged_q8 (int8 pools [P,Hkv,ps,D], f32
+// scales [P,Hkv,1,ps], block tables [B,max_blocks] int32, B7). The other
+// layouts run one templated split kernel:
 //   <I8, PAGED=false>  int8 k, v [B,Hkv,S,D], f32 scales
 //                      kd, vd [B,Hkv,1,S] (one per row)                    flash_decode_q8
 //   <Q4, PAGED=false>  u8 k, v [B,Hkv,S/2,D]: row 2j in the low nibble of
@@ -12,15 +13,13 @@
 //                      (plane p*G+g, column j: group g of row 2j+p)         flash_decode_q4
 //   <BF16|F16|F32, PAGED=true>  pools [P,Hkv,ps,D], block tables
 //                      [B,max_blocks] int32                                flash_decode_paged
-//   <I8, PAGED=true>   int8 pools [P,Hkv,ps,D], f32 scales
-//                      [P,Hkv,1,ps], block tables                          flash_decode_paged_q8
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel_q8
 // and ::_decode_kernel_q8_allh (flash_decode_q8), ::_decode_kernel_q4
 // (flash_decode_q4), ::_decode_kernel_paged and ::_decode_kernel_paged_allh
-// (flash_decode_paged), ::_decode_kernel_paged_q8 and
-// ::_decode_kernel_paged_q8_allh (flash_decode_paged_q8); B2's
-// ::_decode_kernel and ::_decode_kernel_allh through flash_decode_gqa.cuh.
+// (flash_decode_paged); B2's ::_decode_kernel and ::_decode_kernel_allh and
+// B7's ::_decode_kernel_paged_q8 and ::_decode_kernel_paged_q8_allh through
+// flash_decode_gqa.cuh.
 //
 // Bound on this card: the K/V bytes of the valid rows (and their scales)
 // over the memory rate; a few flops per byte. Design (split-S flash
@@ -58,6 +57,8 @@
 extern template int gqa::launch_row<gqa::BF16>(const gqa::Args&, int, int, int, cudaStream_t);
 extern template int gqa::launch_row<gqa::F16>(const gqa::Args&, int, int, int, cudaStream_t);
 extern template int gqa::launch_row<gqa::F32>(const gqa::Args&, int, int, int, cudaStream_t);
+extern template int gqa::launch_row<gqa::I8, true>(const gqa::Args&, int, int, int,
+                                                   cudaStream_t);
 
 namespace {
 
@@ -421,16 +422,26 @@ KERNELS_API int flash_decode_paged(const void* q, const void* k, const void* v,
                         dtype, D, out, B, stream);
 }
 
-// kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables as above.
+// B7: kq, vq int8 pools [P,Hkv,ps,D]; kd, vd f32 [P,Hkv,1,ps]; tables
+// int32 [B,max_blocks] (an entry outside [0, P) is clamped into it); q f32
+// [B,H,D]; lengths, starts int32 [B] (starts may be null = 0); out f32
+// [B,H,D]; D 128 or 256, H / Hkv ≤ 16. cluster: the blocks of a (kv head,
+// slot) pair, 8 or 16, or 0 for the kernel's own choice. One launch, no
+// workspace.
 KERNELS_API int flash_decode_paged_q8(const void* q, const void* kq, const void* kd,
                                       const void* vq, const void* vd, const void* tables,
                                       const void* lengths, const void* starts, void* out,
-                                      void* ws_acc, void* ws_ml, int B, int H, int Hkv, int D,
-                                      int ps, int max_blocks, int n_pages, int pages_per_split,
-                                      float scale, float softcap, void* stream) {
-    const int n_splits = (max_blocks + pages_per_split - 1) / pages_per_split;
-    return launch<I8, true>(make_args(q, kq, kd, vq, vd, tables, lengths, starts, ws_acc,
-                                      ws_ml, H, Hkv, ps, max_blocks, n_pages,
-                                      pages_per_split * ps, n_splits, scale, softcap),
-                            D, out, B, stream);
+                                      int B, int H, int Hkv, int D, int ps, int max_blocks,
+                                      int n_pages, int cluster, float scale, float softcap,
+                                      void* stream) {
+    if (B <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > 16 || ps <= 0 || max_blocks <= 0 ||
+        n_pages <= 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const gqa::Args a{static_cast<const float*>(q), kq, vq, static_cast<const int*>(lengths),
+                      static_cast<const int*>(starts), static_cast<float*>(out), H, Hkv,
+                      max_blocks * ps, scale, softcap, static_cast<const float*>(kd),
+                      static_cast<const float*>(vd), static_cast<const int*>(tables), ps,
+                      max_blocks, n_pages};
+    return gqa::launch_row<gqa::I8, true>(a, B, D, cluster, static_cast<cudaStream_t>(stream));
 }

@@ -1,18 +1,36 @@
-// flash_decode_gqa.cuh — B2, decode attention (T = 1) over dense K/V rows
-// of bf16, f16 or f32: q [B,H,D] f32 over each slot's cached rows
-// [start_b, length_b) of k, v [B,Hkv,S,D], GQA groups of rep = H / Hkv ≤ 16
-// query heads a kv head, optional logit softcap → out [B,H,D] f32. The C
-// entry is flash_decode (flash_decode.cu); flash_decode_gqa_{bf16,f16,f32}.cu
-// instantiate one row type each, so the three compile side by side.
+// flash_decode_gqa.cuh — decode attention (T = 1): q [B,H,D] f32 over each
+// slot's cached rows [start_b, length_b), GQA groups of rep = H / Hkv ≤ 16
+// query heads a kv head, optional logit softcap → out [B,H,D] f32. Two
+// template axes: the row type R (bf16, f16, f32, or I8: int8 codes with one
+// f32 scale a row) and the row source (dense k, v [B,Hkv,S,D]; or PAGED
+// pools [P,Hkv,ps,D] with row r of slot b in page tables[b, r / ps], an
+// entry ≥ P clamped to P − 1, and I8 scales [P,Hkv,1,ps]). Instantiated:
+// - B2, dense bf16 / f16 / f32 rows: C entry flash_decode (flash_decode.cu),
+//   flash_decode_gqa_{bf16,f16,f32}.cu one row type each;
+// - B7, paged I8 rows: C entry flash_decode_paged_q8 (flash_decode.cu),
+//   flash_decode_gqa_paged_q8.cu.
+// The four translation units compile side by side.
 //
 // Replaces: llama_cpp_dsp_tpu/ops/pallas/attention.py::_decode_kernel and
-// ::_decode_kernel_allh (entry flash_decode).
+// ::_decode_kernel_allh (B2, entry flash_decode); ::_decode_kernel_paged_q8
+// and ::_decode_kernel_paged_q8_allh (B7, entry flash_decode_paged_q8).
 //
-// Bound on this card: the K/V bytes of the valid rows over the memory rate;
-// 2·rep f32 FMAs per K/V element pair (≤ 3.5 a byte at rep 7, a third of
-// the CUDA cores' rate at 3.35 TB/s), so no tensor cores: every element is
-// converted to f32 exactly and q is scaled in f32 before the dot, as the TPU
-// kernel does, and only the order of the sums differs from the plain version.
+// Bound on this card: the K/V bytes of the valid rows (and I8's row scales)
+// over the memory rate, no tensor cores: every element is converted to f32
+// exactly and q is scaled in f32 before the dot, as the TPU kernels do, and
+// only the order of the sums differs from the plain version. bf16 rows take
+// 2·rep f32 FMAs per K/V element pair (≤ 3.5 a byte at rep 7, a third of the
+// CUDA cores' rate at 3.35 TB/s). I8 rows take twice that a byte, and each
+// code costs a prmt and an FADD besides (exact, no conversion instruction:
+// s8x4). At rep 7 (RB 8) a K/V byte pair costs ~23 instructions: 16 FMAs,
+// ~5 for the codes, ~2 for the score's shuffles, ~1 for p; to read at 3.35
+// TB/s each SM must take ~14.5 bytes a clock, i.e. ~165 instructions a
+// clock against the SM's 128, so the I8 tile loop is bound by issue at rep
+// 7-8 (and by bytes at rep ≤ 4). At the decode shapes a call is bound by
+// neither: a few µs of latency (table and length loads, the first copies,
+// the merge) rule it (PERF.md §6). B7 scores with (q·scale · codes) ·
+// kd[row], then the softcap, and folds the value term as (p · vd[row]) ·
+// codes, as the TPU kernel does.
 //
 // Design. The TPU kernel walks a slot's rows in order with the whole GQA
 // group as one [rep, D] operand. Here:
@@ -28,19 +46,30 @@
 // - A block reads each K and V row of its part once, for all rep heads:
 //   the rows stream through a ring of 2-4 tiles of 32 KB of K and V (64 rows
 //   of bf16 / f16 at D = 128, 32 otherwise; the ring ≤ 72 KB, so three
-//   blocks share an SM; f32 rows at D = 256 take two 68 KB stages) in
-//   shared memory, 16-byte cp.async.cg copies; rows past the part are never
-//   issued. With no SWA starts rank 0's first tile goes out before the
-//   length is read.
+//   blocks share an SM; f32 rows at D = 256 take two 68 KB stages; I8 tiles
+//   are 64 rows with their scales: 2-4 stages and three blocks an SM up to
+//   rep 8 at D = 128, two stages of ~41 KB at D = 256) in shared memory,
+//   16-byte cp.async.cg copies; rows past the part are never issued. With
+//   no SWA starts a dense rank 0's first tile goes out before the length is
+//   read.
+// - PAGED: tiles do not line up with pages; each 16-byte chunk finds its
+//   own page. The page ids of table entries [w0, w0 + 256) sit in shared
+//   memory (w0 = 0 first, read together with the length, so a part's first
+//   copy waits for one load, not two in a row); a tile whose pages leave
+//   the window moves it (only past 256 pages of a slot). I8 row scales ride
+//   the ring beside their rows: a 16-byte copy where four rows (aligned to
+//   4) lie in one page at a 16-byte-aligned address, 4-byte copies
+//   otherwise, so any page size works.
 // - Per tile: (1) scores of all rows × rep heads: LPR lanes share a row, each
 //   holding its DQ dims of every head's q in registers (RB·DQ ≤ 64 floats,
-//   128 at RB 16 and D 256), summed across the row's lanes by a
+//   128 at RB 16; I8 lanes read 8 bytes), summed across the row's lanes by a
 //   reduce-scatter (the first log2(RB) shuffle steps trade halves of the
 //   heads); rows padded so the lanes of a load phase hit distinct banks;
 //   (2) one max and one rescale per tile and head (warp w takes heads w,
-//   w + 4, …; a lane rows lane, lane + 32); (3) p·V: a thread owns 8 dims
-//   (two runs of 4) of HPT heads over every RG-th row of the tile, so a V
-//   element leaves shared memory once per thread for all its heads.
+//   w + 4, …; a lane rows lane, lane + 32; I8 stores p · vd[row]); (3) p·V:
+//   a thread owns 8 dims (two runs of 4; I8 8 bytes in a row) of HPT heads
+//   over every RG-th row of the tile, so a V element leaves shared memory
+//   once per thread for all its heads.
 // - The merge, in the same launch: rank r owns outputs [r·SL, (r + 1)·SL),
 //   SL = rep·D / C. Each block pushes its (m, l) to every rank and each
 //   slice of its sums to the slice's owner with st.async into the owner's
@@ -62,18 +91,23 @@ namespace gqa {
 
 namespace cg = cooperative_groups;
 
-// element type of the cached rows (the C entry's `dtype` codes)
-enum RowType : int { BF16 = 0, F16 = 1, F32 = 2 };
+// element type of the cached rows (the C entries' `dtype` codes; I8: int8
+// codes and an f32 scale a row)
+enum RowType : int { BF16 = 0, F16 = 1, F32 = 2, I8 = 3 };
 
 struct Args {
     const float* q;      // [B,H,D]
-    const void* k;       // [B,Hkv,S,D]
-    const void* v;       // [B,Hkv,S,D]
+    const void* k;       // [B,Hkv,S,D]; PAGED [P,Hkv,ps,D]
+    const void* v;       // the same
     const int* lengths;  // [B]
     const int* starts;   // [B], or null = 0
     float* out;          // [B,H,D]
-    int H, Hkv, S;
+    int H, Hkv, S;       // S: rows a slot (PAGED: max_blocks · ps)
     float scale, softcap;
+    const float* kd;     // I8: row scales [B,Hkv,1,S]; PAGED [P,Hkv,1,ps]
+    const float* vd;
+    const int* tables;   // PAGED: [B, max_blocks] page ids
+    int ps, max_blocks, n_pages;  // PAGED
 };
 
 constexpr int NT = 128;                 // threads a block
@@ -84,28 +118,43 @@ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // The layout of one instantiation: row type R, head width D, RB ≥ rep
-// query heads a block (1, 2, 4, 8 or 16).
-template <int R, int D, int RB>
+// query heads a block (1, 2, 4, 8 or 16), row source PAGED.
+template <int R, int D, int RB, bool PAGED = false>
 struct Cfg {
-    static constexpr int ES = R == F32 ? 4 : 2;  // bytes an element
-    static constexpr int CD = 16 / ES;           // elements a 16-byte chunk
-    static constexpr int CPR = D * ES / 16;      // chunks a row
+    static constexpr int ES = R == F32 ? 4 : R == I8 ? 1 : 2;  // bytes an element
+    static constexpr int CB = R == I8 ? 8 : 16;  // bytes of a row a lane scores at once
+    static constexpr int CD = CB / ES;           // elements a score chunk
+    static constexpr int CPR = D * ES / 16;      // 16-byte copy chunks a row
     // rows a tile: 32 KB of K and V (32 rows at least, a lane's share of
-    // the softmax a whole number of rows)
-    static constexpr int T = cmax(32, 16384 / (D * ES));
+    // the softmax a whole number of rows); I8 64 rows at either width: at
+    // D = 128 its 16 KB tiles leave room for three blocks an SM, which the
+    // 7B's 32 clusters of 8 need to run in one wave (128-row tiles: 11.0 µs
+    // a layer against 6.6, PERF.md §6), and at D = 256 they beat 32-row ones
+    // (0.393 ms a Gemma-3-12B token against 0.413)
+    static constexpr int T = R == I8 ? 64 : cmax(32, 16384 / (D * ES));
     // scores: LPR lanes a row, DQ dims a lane (NCH chunks), P rows a pass
-    static constexpr int LPR = cmin(cmax(RB * D / 64, NT / T), cmin(32, CPR));
+    static constexpr int LPR = cmin(cmax(RB * D / 64, NT / T), cmin(32, D * ES / CB));
     static constexpr int DQ = D / LPR;
     static constexpr int NCH = DQ / CD;
     static constexpr int P = NT / LPR;
     static constexpr int G = LPR / RB;  // lanes a head's score ends in
     static constexpr int LOG2RB = RB >= 16 ? 4 : RB >= 8 ? 3 : RB >= 4 ? 2 : RB >= 2 ? 1 : 0;
-    // below 8 lanes a row, a load phase spans rows: pad them onto other banks
-    static constexpr int PAD = LPR < 8 ? 16 * LPR : 0;
+    // a load phase reads 128 bytes; where a row's lanes read fewer, the
+    // phase spans rows: pad them onto other banks
+    static constexpr int PAD = LPR * CB < 128 ? LPR * CB : 0;
     static constexpr int STRIDE = D * ES + PAD;  // bytes a row in shared memory
     static constexpr int TILE = T * STRIDE;
-    static constexpr int STAGES = cmax(2, cmin(4, RING_BYTES / (2 * TILE)));
-    static constexpr int RING = STAGES * 2 * TILE;  // K tile then V tile a stage
+    // I8: a tile's K and V row scales, 4 floats of slack so that a 16-byte
+    // copy of 4 rows aligned to 4 stays aligned in shared memory
+    static constexpr int SCL = R == I8 ? 4 * (T + 4) : 0;
+    static constexpr int STAGE = 2 * TILE + 2 * SCL;  // K tile, V tile, K and V scales
+    static constexpr int STAGES = cmax(2, cmin(4, RING_BYTES / STAGE));
+    static constexpr int RING = STAGES * STAGE;
+    static constexpr int TW = PAGED ? 256 : 0;  // the table window's entries
+    // p·V: a thread's 8 dims are D0·td.. and D1 further on (I8: 8 bytes in
+    // a row, one 8-byte load; else two runs of 4 elements)
+    static constexpr int D0 = R == I8 ? 8 : 4;
+    static constexpr int D1 = R == I8 ? 4 : D / 2;
     // p·V: DT threads across the dims (8 each), HG head groups of HPT, RG row
     // groups
     static constexpr int DT = D / 8;
@@ -117,11 +166,13 @@ struct Cfg {
     static constexpr int RECV = RB * D + MAX_CLUSTER;
     // the ring; the merge's mbarrier (16 bytes); scores / probabilities
     // [RB][T]; m, l, alpha [RB]; the merge's received slices and m, l,
-    // weights [MAX_CLUSTER][RB]
+    // weights [MAX_CLUSTER][RB]; the table window [TW]
     static constexpr int SMEM =
-        RING + 16 + 4 * (RB * T + 3 * RB + RECV + 3 * MAX_CLUSTER * RB);
+        RING + 16 + 4 * (RB * T + 3 * RB + RECV + 3 * MAX_CLUSTER * RB + TW);
 
     static_assert(T % 32 == 0 && T % P == 0 && NCH >= 1 && RG >= 1 && G >= 1, "tile layout");
+    static_assert(STRIDE % 16 == 0 && STAGE % 16 == 0 && (!PAGED || T <= TW),
+                  "16-byte copies; a tile's pages fit in the window");
     static_assert(RG * RB * D * 4 <= RING, "the row groups' sums fit in the ring");
     static_assert(SMEM <= 232448, "shared memory of one block");
 };
@@ -141,6 +192,28 @@ __device__ __forceinline__ void cvt16(const uint4 u, float (&f)[16 / (R == F32 ?
             f[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
             f[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
         }
+    }
+}
+
+// the 4 int8 codes of w → f32, exactly and with no conversion instruction:
+// code ^ 0x80 under the exponent of 2^23, less 2^23 + 128
+__device__ __forceinline__ void s8x4(uint32_t w, float* f) {
+    const uint32_t x = w ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        f[i] = __uint_as_float(__byte_perm(x, 0x4b000000u, 0x7440 | i)) - 8388736.f;
+    }
+}
+
+// the score chunk at p (Cfg::CB bytes, aligned) → f32
+template <int R>
+__device__ __forceinline__ void cvt_chunk(const unsigned char* p, float (&f)[R == I8 ? 8 : 16 / (R == F32 ? 4 : 2)]) {
+    if constexpr (R == I8) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        s8x4(u.x, f);
+        s8x4(u.y, f + 4);
+    } else {
+        cvt16<R>(*reinterpret_cast<const uint4*>(p), f);
     }
 }
 
@@ -167,6 +240,11 @@ __device__ __forceinline__ void ld4(const unsigned char* p, float* f) {
             }
         }
     }
+}
+
+// 4 bytes global → shared (cp.async.ca)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
 }
 
 // The cluster barrier in two halves (every thread of every block arrives
@@ -202,9 +280,9 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t mbar, uint32_t parity) {
     return ok;
 }
 
-template <int R, int D, int RB>
+template <int R, int D, int RB, bool PAGED>
 __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
-    using K = Cfg<R, D, RB>;
+    using K = Cfg<R, D, RB, PAGED>;
     constexpr int T = K::T;
     extern __shared__ __align__(16) unsigned char smem[];
     const uint32_t mbar = (uint32_t)__cvta_generic_to_shared(smem + K::RING);
@@ -216,29 +294,100 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
     float* gm = recv + K::RECV;                 // [MAX_CLUSTER][RB]: m of every part
     float* gl = gm + MAX_CLUSTER * RB;          // l of every part
     float* gw = gl + MAX_CLUSTER * RB;          // their weights e^(m_j − m)
+    int* win = reinterpret_cast<int*>(gw + MAX_CLUSTER * RB);  // PAGED: [TW] page ids
 
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
     const int hk = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
     const int rep = a.H / a.Hkv;
     const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem);
-    const size_t row0 = ((size_t)b * a.Hkv + hk) * a.S;  // row 0 of this slot and kv head
+    // PAGED: the page ids of table entries [w0, w0 + TW), clamped to
+    // [0, P − 1]; the first window's loads go out before the length's, so
+    // both are in flight together, and land in shared memory after it
+    const int* tab = a.tables + (size_t)b * a.max_blocks;
+    int w0 = 0;
+    int wv[K::TW / NT > 0 ? K::TW / NT : 1];
+    auto fetch_window = [&]() {
+#pragma unroll
+        for (int j = 0; j < K::TW / NT; ++j) {
+            const int e = w0 + t + j * NT;
+            wv[j] = e < a.max_blocks ? tab[e] : 0;
+        }
+    };
+    auto store_window = [&]() {
+#pragma unroll
+        for (int j = 0; j < K::TW / NT; ++j) win[t + j * NT] = min(max(wv[j], 0), a.n_pages - 1);
+    };
+    if constexpr (PAGED) fetch_window();
+    // a row's index in units of rows (times D·ES: its K/V bytes; as it is:
+    // its I8 scale); PAGED through the window
+    const size_t row0 = PAGED ? 0 : ((size_t)b * a.Hkv + hk) * a.S;  // dense row 0 of the pair
+    auto row_index = [&](int row) -> size_t {
+        if constexpr (PAGED) {
+            const int pg = row / a.ps;
+            return ((size_t)win[pg - w0] * a.Hkv + hk) * a.ps + (row - pg * a.ps);
+        } else {
+            return row0 + row;
+        }
+    };
     const unsigned char* kb = static_cast<const unsigned char*>(a.k) + row0 * (D * K::ES);
     const unsigned char* vb = static_cast<const unsigned char*>(a.v) + row0 * (D * K::ES);
     auto load = [&](int r0, int rows, int stage) {  // rows [r0, r0 + rows) into a stage
-        const uint32_t dst = ring + stage * 2 * K::TILE;
+        const uint32_t dst = ring + stage * K::STAGE;
+        if constexpr (PAGED) {
+            // move the window where this tile's pages leave it (uniform
+            // across the block: every thread is done with the old window)
+            const int p0 = r0 / a.ps, p1 = (r0 + rows - 1) / a.ps;
+            if (p0 < w0 || p1 >= w0 + K::TW) {
+                __syncthreads();
+                w0 = p0;
+                fetch_window();
+                store_window();
+                __syncthreads();
+            }
+        }
         for (int i = t; i < rows * K::CPR; i += NT) {
             const int r = i / K::CPR, c = i % K::CPR;
-            const size_t off = (size_t)(r0 + r) * (D * K::ES) + c * 16;
+            size_t off;
+            if constexpr (PAGED) {
+                off = row_index(r0 + r) * (D * K::ES) + c * 16;
+            } else {
+                off = (size_t)(r0 + r) * (D * K::ES) + c * 16;
+            }
             const uint32_t so = r * K::STRIDE + c * 16;
             cp_async16(dst + so, kb + off, true);
             cp_async16(dst + K::TILE + so, vb + off, true);
         }
+        if constexpr (R == I8) {
+            // the rows' K and V scales: row r at float (r − r0) + (r0 & 3) of
+            // its array, so a group of 4 rows aligned to 4 (4g .. 4g + 3)
+            // starts on 16 bytes: one 16-byte copy where the group lies in
+            // the tile and in one page at a 16-byte-aligned scale address,
+            // else a 4-byte copy per row of the tile
+            const int gfirst = r0 >> 2, ng = ((r0 + rows - 1) >> 2) - gfirst + 1;
+            for (int i = t; i < 2 * ng; i += NT) {
+                const int ra = 4 * (gfirst + (i >> 1));
+                const float* base = (i & 1) ? a.vd : a.kd;
+                const uint32_t sd = dst + 2 * K::TILE + (i & 1) * K::SCL + 4 * (ra - 4 * gfirst);
+                const size_t si = ra >= r0 ? row_index(ra) : 0;
+                if (ra >= r0 && ra + 4 <= r0 + rows && si % 4 == 0 &&
+                    (!PAGED || ra / a.ps == (ra + 3) / a.ps)) {
+                    cp_async16(sd, base + si, true);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        if (ra + e >= r0 && ra + e < r0 + rows) {
+                            cp_async4(sd + 4 * e, base + row_index(ra + e));
+                        }
+                    }
+                }
+            }
+        }
     };
-    // with no SWA starts rank 0's part begins at row 0 whatever the length:
-    // its first tile goes out before the length is read (rows past it are
-    // loaded and never used)
-    const bool early = a.starts == nullptr && rank == 0;
+    // with no SWA starts a dense rank 0's part begins at row 0 whatever the
+    // length: its first tile goes out before the length is read (rows past
+    // it are loaded and never used)
+    const bool early = !PAGED && a.starts == nullptr && rank == 0;
     if (early) {
         load(0, min(T, a.S), 0);
         cp_async_commit();
@@ -251,6 +400,7 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
     const int st = a.starts ? max(a.starts[b], 0) : 0;
     const int span = max(len - st, 0);
     const bool solo = span <= T;
+    if constexpr (PAGED) store_window();
     if (solo && rank > 0) return;
     if (!solo) {
         // the merge's mbarrier: one arrival (here), and the bytes every block
@@ -292,6 +442,7 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
     const int lo = st + rank * part;
     const int nrows = max(min(lo + part, len) - lo, 0);
     const int ntiles = (nrows + T - 1) / T;
+    if constexpr (PAGED) __syncthreads();  // the first window is in
 
     if (t < RB) {
         sm_m[t] = -INFINITY;
@@ -307,7 +458,7 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
         cp_async_commit();  // an empty group where nothing is left keeps the count
     };
 
-    // p·V: dims 4·td.. and D/2 + 4·td.. of heads hg·HPT.., rows rg, rg + RG, ...
+    // p·V: dims D0·td.. and D0·td + D1.. of heads hg·HPT.., rows rg, rg + RG, ...
     const int td = t % K::DT, hg = (t / K::DT) % K::HG, rg = t / K::DT / K::HG;
     float acc[K::HPT][8];
 #pragma unroll
@@ -321,9 +472,12 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
         cp_async_wait<K::STAGES - 2>();
         __syncthreads();  // tile is in; every thread is done with tile − 1
         issue(tile + K::STAGES - 1);
-        const unsigned char* ks = smem + (tile % K::STAGES) * 2 * K::TILE;
+        const unsigned char* ks = smem + (tile % K::STAGES) * K::STAGE;
         const unsigned char* vs = ks + K::TILE;
         const int n = min(T, nrows - tile * T);
+        // I8: the tile's row scales (its first row lo + tile·T ≡ lo mod 4)
+        const float* kds = reinterpret_cast<const float*>(ks + 2 * K::TILE) + (lo & 3);
+        const float* vds = kds + K::SCL / 4;
 
         // (1) scores; rows past n hold stale bytes: computed, never stored.
         // A pass past n is skipped by the whole block.
@@ -337,9 +491,7 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
 #pragma unroll
             for (int i = 0; i < K::NCH; ++i) {
                 float kf[K::CD];
-                cvt16<R>(*reinterpret_cast<const uint4*>(ks + row * K::STRIDE +
-                                                          (sub + K::LPR * i) * 16),
-                         kf);
+                cvt_chunk<R>(ks + row * K::STRIDE + (sub + K::LPR * i) * K::CB, kf);
 #pragma unroll
                 for (int h = 0; h < RB; ++h) {
 #pragma unroll
@@ -367,6 +519,7 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
             for (int o = K::G / 2; o > 0; o >>= 1) s[0] += __shfl_xor_sync(0xffffffffu, s[0], o);
             if (row < n && sub % K::G == 0 && sub / K::G < rep) {
                 float x = s[0];
+                if constexpr (R == I8) x *= kds[row];
                 if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
                 sc[(sub / K::G) * T + row] = x;
             }
@@ -392,8 +545,15 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
                 ps += x[i];
             }
             ps = warp_sum(ps);  // every lane has read sm_m[h]
+            // I8 stores p · vd[row]: the value term's row scale (l sums p)
 #pragma unroll
-            for (int i = 0; i < T / 32; ++i) sc[h * T + lane + 32 * i] = x[i];
+            for (int i = 0; i < T / 32; ++i) {
+                if constexpr (R == I8) {
+                    sc[h * T + lane + 32 * i] = lane + 32 * i < n ? x[i] * vds[lane + 32 * i] : 0.f;
+                } else {
+                    sc[h * T + lane + 32 * i] = x[i];
+                }
+            }
             if (lane == 0) {
                 const float alpha = expf(m_old - m_new);  // m_old = −inf → 0
                 sm_a[h] = alpha;
@@ -413,8 +573,14 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
 #pragma unroll 2
         for (int row = rg; row < n; row += K::RG) {
             float vf[8];
-            ld4<R>(vs + row * K::STRIDE + 4 * td * K::ES, vf);
-            ld4<R>(vs + row * K::STRIDE + (D / 2 + 4 * td) * K::ES, vf + 4);
+            if constexpr (R == I8) {
+                const uint2 u = *reinterpret_cast<const uint2*>(vs + row * K::STRIDE + 8 * td);
+                s8x4(u.x, vf);
+                s8x4(u.y, vf + 4);
+            } else {
+                ld4<R>(vs + row * K::STRIDE + 4 * td * K::ES, vf);
+                ld4<R>(vs + row * K::STRIDE + (D / 2 + 4 * td) * K::ES, vf + 4);
+            }
 #pragma unroll
             for (int h = 0; h < K::HPT; ++h) {
                 const float p = sc[(hg * K::HPT + h) * T + row];
@@ -430,9 +596,9 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
     float* sums = reinterpret_cast<float*>(smem);
 #pragma unroll
     for (int h = 0; h < K::HPT; ++h) {
-        float* o = sums + (size_t)(rg * RB + hg * K::HPT + h) * D + 4 * td;
+        float* o = sums + (size_t)(rg * RB + hg * K::HPT + h) * D + K::D0 * td;
         *reinterpret_cast<float4*>(o) = make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
-        *reinterpret_cast<float4*>(o + D / 2) =
+        *reinterpret_cast<float4*>(o + K::D1) =
             make_float4(acc[h][4], acc[h][5], acc[h][6], acc[h][7]);
     }
     __syncthreads();
@@ -498,10 +664,10 @@ __global__ void __launch_bounds__(NT) flash_decode_gqa(const Args a) {
     }
 }
 
-template <int R, int D, int RB>
+template <int R, int D, int RB, bool PAGED>
 int launch(const Args& a, int B, int cluster, cudaStream_t st) {
-    using K = Cfg<R, D, RB>;
-    void (*kern)(const Args) = flash_decode_gqa<R, D, RB>;
+    using K = Cfg<R, D, RB, PAGED>;
+    void (*kern)(const Args) = flash_decode_gqa<R, D, RB, PAGED>;
     struct Setup {
         int err, sms;
         bool fits16;
@@ -568,23 +734,24 @@ int launch(const Args& a, int B, int cluster, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
-template <int R, int D>
+template <int R, int D, bool PAGED>
 int launch_rep(const Args& a, int B, int cluster, cudaStream_t st) {
     const int rep = a.H / a.Hkv;
-    if (rep <= 1) return launch<R, D, 1>(a, B, cluster, st);
-    if (rep <= 2) return launch<R, D, 2>(a, B, cluster, st);
-    if (rep <= 4) return launch<R, D, 4>(a, B, cluster, st);
-    if (rep <= 8) return launch<R, D, 8>(a, B, cluster, st);
-    if (rep <= 16) return launch<R, D, 16>(a, B, cluster, st);
+    if (rep <= 1) return launch<R, D, 1, PAGED>(a, B, cluster, st);
+    if (rep <= 2) return launch<R, D, 2, PAGED>(a, B, cluster, st);
+    if (rep <= 4) return launch<R, D, 4, PAGED>(a, B, cluster, st);
+    if (rep <= 8) return launch<R, D, 8, PAGED>(a, B, cluster, st);
+    if (rep <= 16) return launch<R, D, 16, PAGED>(a, B, cluster, st);
     return (int)cudaErrorInvalidValue;
 }
 
-// B2 over rows of type R: D 128 or 256; cluster 8, 16 or 0 (choose)
-template <int R>
+// rows of type R from source PAGED: D 128 or 256; cluster 8, 16 or 0
+// (choose)
+template <int R, bool PAGED = false>
 int launch_row(const Args& a, int B, int D, int cluster, cudaStream_t st) {
     switch (D) {
-        case 128: return launch_rep<R, 128>(a, B, cluster, st);
-        case 256: return launch_rep<R, 256>(a, B, cluster, st);
+        case 128: return launch_rep<R, 128, PAGED>(a, B, cluster, st);
+        case 256: return launch_rep<R, 256, PAGED>(a, B, cluster, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -6,18 +6,20 @@ f32 (`flash_decode`), Q8_0 rows (`flash_decode_q8`), Q4_0 row pairs
 attention over an MLA cache (`mla_flash_decode`, csrc/mla_decode.cu).
 
 Counterpart of the JAX package's ops/pallas/attention.py entries of the same
-names. `flash_decode` (B2) runs a cluster kernel (csrc/flash_decode_gqa.cuh):
-a cluster of 8 or 16 blocks a (kv head, slot) pair cuts the valid span into
-even parts on the card, each block streams its part's rows through a
-shared-memory ring once for the whole GQA group, and the parts merge by
-log-sum-exp through distributed shared memory in the same launch. The four
-other decode entries run one templated CUDA kernel (csrc/flash_decode.cu):
-split-S flash decoding with a second launch that merges the splits. A q8 score
-is (q·kq)·kd[row] and a q8 value term (p·vd[row])·vq, as the TPU kernels
-fold the row scales; a q4 score sums kd[row, g]·(q·(k − 8)) over the 32-wide
-groups g and its value term folds vd[row, g] the same way; no cache is
-dequantized into a buffer. A paged split is a run of pages read through the
-block table. Where K and V come in two dense types, both are taken in f32
+names. `flash_decode` (B2) and `flash_decode_paged_q8` (B7) run a cluster
+kernel (csrc/flash_decode_gqa.cuh): a cluster of 8 or 16 blocks a (kv head,
+slot) pair cuts the valid span into even parts on the card, each block
+streams its part's rows through a shared-memory ring once for the whole GQA
+group (B7: each 16-byte chunk through its own page, the row scales beside
+the rows), and the parts merge by log-sum-exp through distributed shared
+memory in the same launch. The three other decode entries run one templated
+CUDA kernel (csrc/flash_decode.cu): split-S flash decoding with a second
+launch that merges the splits. A q8 score is (q·kq)·kd[row] and a q8 value
+term (p·vd[row])·vq, as the TPU kernels fold the row scales; a q4 score sums
+kd[row, g]·(q·(k − 8)) over the 32-wide groups g and its value term folds
+vd[row, g] the same way; no cache is dequantized into a buffer. A paged
+split of `flash_decode_paged` is a run of pages read through the block
+table. Where K and V come in two dense types, both are taken in f32
 (exact: the kernel converts every element to f32 as it loads it). The
 decode and prefill kernels take head widths 128 and 256 (`HEAD_DIMS`); a
 CUDA tensor of another width raises (ROADMAP.md queue B, item 5), and the
@@ -41,10 +43,10 @@ from ...quant.kv_planes import q4_deq_plane
 from .. import softcap as apply_softcap
 from . import LAUNCHES, aligned16, stream_handle
 
-SPLIT_ROWS = 64  # cache rows per split of the q8, q4 and paged entries
+SPLIT_ROWS = 64  # cache rows per split of the q8, q4 and bf16 / f16 / f32 paged entries
 HEAD_DIMS = (128, 256)  # the kernels' head widths (Llama / Qwen / Mixtral; Gemma)
-MAX_REP = 16  # B2's query heads a kv head
-CLUSTERS = (0, 8, 16)  # B2's blocks a (kv head, slot) pair; 0: the kernel's choice
+MAX_REP = 16  # B2's and B7's query heads a kv head
+CLUSTERS = (0, 8, 16)  # B2's and B7's blocks a (kv head, slot) pair; 0: the kernel's choice
 _WIDTH_ROW = "ROADMAP.md queue B, item 5"
 _Q8_DTYPES = (torch.int8, torch.float32, torch.int8, torch.float32)
 _Q4_DTYPES = (torch.uint8, torch.float32, torch.uint8, torch.float32)
@@ -185,20 +187,14 @@ def _row_type(name: str, k, v):
     return k, v, _ROW_TYPES[k.dtype]
 
 
-def flash_decode(q, k, v, lengths, starts=None, *, scale: float,
-                 softcap: float = 0.0) -> torch.Tensor:
+def flash_decode(q, k, v, lengths, starts=None, *, scale: float, softcap: float = 0.0,
+                 cluster: int = 0) -> torch.Tensor:
     """q [B,H,D] (roped, taken in f32), k/v [B,Hkv,S,D] of bf16, f16 or f32
-    → [B,H,D] f32."""
+    → [B,H,D] f32. On the card one launch of B2's cluster kernel
+    (csrc/flash_decode_gqa.cuh), `cluster` blocks a (kv head, slot) pair:
+    8, 16, or 0 for the kernel's own choice (what the model passes)."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, starts, scale=scale, softcap=softcap)
-    return flash_decode_cluster(q, k, v, lengths, starts, scale=scale, softcap=softcap)
-
-
-def flash_decode_cluster(q, k, v, lengths, starts=None, *, scale: float, softcap: float = 0.0,
-                         cluster: int = 0) -> torch.Tensor:
-    """B2's launch on the card, as `flash_decode`, with the cluster size
-    given: 8 or 16 blocks a (kv head, slot) pair, or 0 for the kernel's own
-    choice (what `flash_decode` passes)."""
     from .build import check, lib
 
     b, h, d = q.shape
@@ -283,19 +279,40 @@ def flash_decode_paged(q, k_pages, v_pages, tables, lengths, starts=None, *, sca
 
 
 def flash_decode_paged_q8(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts=None, *,
-                          scale: float, softcap: float = 0.0) -> torch.Tensor:
-    """q [B,H,D]; int8 pools [P,Hkv,ps,D]; f32 scales [P,Hkv,1,ps]; tables
-    [B,max_blocks] int32."""
+                          scale: float, softcap: float = 0.0, cluster: int = 0) -> torch.Tensor:
+    """q [B,H,D] (taken in f32); int8 pools [P,Hkv,ps,D]; f32 row scales
+    [P,Hkv,1,ps]; tables [B,max_blocks] int32 page ids (an entry ≥ P is
+    clamped to P-1 and never read below the length) → [B,H,D] f32. On the
+    card one launch of B7's cluster kernel (csrc/flash_decode_gqa.cuh, no
+    workspace), `cluster` blocks a (kv head, slot) pair: 8, 16, or 0 for the
+    kernel's own choice (what the model passes). Any page size."""
     if q.device.type == "cpu":
         return flash_decode_paged_q8_plain(q, k_qs, k_d, v_qs, v_d, tables, lengths, starts,
                                            scale=scale, softcap=softcap)
+    from .build import check, lib
+
+    name = "flash_decode_paged_q8"
+    b, h, d = q.shape
     p, hkv, ps, _ = k_qs.shape
     if v_qs.shape != k_qs.shape or k_d.shape != (p, hkv, 1, ps) or v_d.shape != k_d.shape:
-        raise ValueError(f"flash_decode_paged_q8: k_qs {tuple(k_qs.shape)} k_d "
-                         f"{tuple(k_d.shape)} v_qs {tuple(v_qs.shape)} v_d {tuple(v_d.shape)}")
-    n_splits, tail = _paged_tail("flash_decode_paged_q8", k_qs, tables, q)
-    return _launch("flash_decode_paged_q8", q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, tables,
-                   lengths, starts, n_splits, tail, scale, softcap)
+        raise ValueError(f"{name}: k_qs {tuple(k_qs.shape)} k_d {tuple(k_d.shape)} v_qs "
+                         f"{tuple(v_qs.shape)} v_d {tuple(v_d.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != b:
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} for q {tuple(q.shape)}")
+    if h % hkv == 0 and h // hkv > MAX_REP or cluster not in CLUSTERS:
+        raise ValueError(f"{name}: H={h} over Hkv={hkv}, cluster {cluster}: the kernel takes "
+                         f"H / Hkv <= {MAX_REP} and a cluster in {CLUSTERS}")
+    qf, ln, st, (tb,) = _operands(name, q, (k_qs, k_d, v_qs, v_d), _Q8_DTYPES, tables, lengths,
+                                  starts)
+    out = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
+    rc = lib().flash_decode_paged_q8(
+        qf.data_ptr(), k_qs.data_ptr(), k_d.data_ptr(), v_qs.data_ptr(), v_d.data_ptr(),
+        tb.data_ptr(), ln.data_ptr(), None if st is None else st.data_ptr(), out.data_ptr(), b,
+        h, hkv, d, ps, tables.shape[1], p, cluster, float(scale), float(softcap),
+        stream_handle(q))
+    check(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

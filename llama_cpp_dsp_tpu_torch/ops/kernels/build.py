@@ -65,7 +65,9 @@ _SIGNATURES = {
     "flash_decode_q4": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     # ... tables ...; B, H, Hkv, D, ps, max_blocks, n_pages, pages_per_split, row type
     "flash_decode_paged": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
-    "flash_decode_paged_q8": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
+    # q, kq, kd, vq, vd, tables, lengths, starts, out; B, H, Hkv, D, ps,
+    # max_blocks, n_pages, cluster
+    "flash_decode_paged_q8": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
     # q, k, v, n_past, out; B, T, H, Hkv, D, S, row type, window, attn_chunk
     "flash_prefill": [_P] * 5 + [_I] * 9 + [_F, _F, _P],
     # q, c, lengths, out, ws_acc, ws_ml; B, H, C, r, S, split_rows; scale
